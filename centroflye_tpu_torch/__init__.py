@@ -1,0 +1,11 @@
+"""PyTorch / CUDA port of the JAX package for one NVIDIA H100.
+
+Module names mirror the JAX package beside this one, which stays the
+reference every module here is tested against. This package imports
+torch and numpy only: never jax, never the JAX package. CUDA kernels
+live in `csrc/` and are built with nvcc on first use (`ops/_build.py`).
+
+Ported so far: stage 1 of cenX, read recruitment
+(`stages/recruitment.py`), with the two-strand Myers kernel in
+`csrc/myers_hw_2strand.cu`.
+"""

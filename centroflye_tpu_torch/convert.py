@@ -1,0 +1,34 @@
+"""Carry the JAX recruitment engine's tables into the port.
+
+The recruitment engine's "weights" are its query tables: the unit's peq
+bit tables for both strands and the LE-keyed seed bitmap. Given them as
+numpy arrays, under the JAX engine's attribute names, this module turns
+them into the port's tensors on a device, for
+`RecruitmentEngine.from_state`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from centroflye_tpu_torch.ops.myers import words_tensor
+
+# JAX RecruitmentEngine attribute -> port state key
+RECRUITMENT_STATE_KEYS = {"peq_fwd": "peq_fwd", "peq_rc": "peq_rc",
+                          "_bitmap_le": "bitmap_le"}
+
+
+def recruitment_state_from_numpy(d: dict, device="cpu") -> dict:
+    """{"peq_fwd", "peq_rc": (5, W) uint32, "_bitmap_le": (4^k/32,)
+    uint32} numpy arrays -> {"peq_fwd", "peq_rc", "bitmap_le"} int64
+    tensors of 32-bit words on `device`. `_bitmap_le` may be absent when
+    the engine runs without the prefilter. Other keys are ignored."""
+    state = {}
+    for src, dst in RECRUITMENT_STATE_KEYS.items():
+        if src not in d:
+            continue
+        arr = np.asarray(d[src])
+        if arr.dtype != np.uint32:
+            raise TypeError(f"{src}: dtype {arr.dtype}, expected uint32")
+        state[dst] = words_tensor(arr, device)
+    return state
