@@ -6,6 +6,9 @@ torch and numpy only: never jax, never the JAX package. CUDA kernels
 live in `csrc/` and are built with nvcc on first use (`ops/_build.py`).
 
 Ported so far: stage 1 of cenX, read recruitment
-(`stages/recruitment.py`), with the two-strand Myers kernel in
-`csrc/myers_hw_2strand.cu`.
+(`stages/recruitment.py`), and the op modules under it (Myers, k-mer
+packing and lookup, seed filter, fused step), with a Hopper kernel for
+each of the JAX package's Pallas kernels: two-strand and one-strand HW
+Myers in `csrc/myers_hw_2strand.cu`, threshold-k banded HW Myers in
+`csrc/myers_hw_banded.cu`.
 """

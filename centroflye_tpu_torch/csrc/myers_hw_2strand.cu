@@ -1,10 +1,12 @@
-// Two-strand HW (infix) Myers edit distance for Hopper (sm_90a).
+// HW (infix) Myers edit distance for Hopper (sm_90a), on one or two strands.
 //
-// Replaces the TPU kernel myers_hw_pallas_v3_2strand (body
-// _make_kernel_2strand) of the JAX package's ops/myers_pallas_v3.py, the
-// recruitment scorer. For each text row b it computes the HW edit distance
-// of the unit (peq_f) and of its reverse complement (peq_r) against
-// text[0:lens[b]], and the first column that reaches each minimum:
+// Replaces two TPU kernels of the JAX package's ops/myers_pallas_v3.py:
+// myers_hw_pallas_v3_2strand (body _make_kernel_2strand, the recruitment
+// scorer; STRANDS = 2) and myers_hw_pallas_v3 (body _make_kernel, its
+// one-strand form; STRANDS = 1). For each text row b it computes the HW
+// edit distance of the unit (peq_f) and, with two strands, of its reverse
+// complement (peq_r) against text[0:lens[b]], and the first column that
+// reaches each minimum:
 //   - state: vp all ones, vn 0, score = best = m, bestj = -1;
 //   - Eq = peq[c] for c < 4, 0 for c >= 4 (N and PAD match nothing);
 //   - HW column update (no 1 shifted into hp at row 0);
@@ -16,12 +18,12 @@
 //
 // What bounds it: integer ALU and shuffle latency, not bytes. Each column
 // is a chain of dependent word operations over W = ceil(m/32) words
-// (65 for DXZ1) for each of two strands; a row reads one byte per column.
+// (65 for DXZ1) for each strand; a row reads one byte per column.
 // DXZ1's 65 words of vp/vn/peq are too much state for one thread.
 //
-// Design: one warp per (row, strand), the two strands of a row side by
-// side in one block. Lane l holds the contiguous words [l*WPL, (l+1)*WPL)
-// in registers (WPL = ceil(W/32) is a template parameter, 1..4: 3 for
+// Design: one warp per (row, strand), the strands of a row side by side
+// in one block of 8 warps (STRANDS is a template parameter). Lane l holds
+// the contiguous words [l*WPL, (l+1)*WPL) in registers (WPL = ceil(W/32) is a template parameter, 1..4: 3 for
 // DXZ1, 4 for D6Z1). The Myers add ripples within a lane; the carry
 // between lanes is a carry-lookahead over the warp: one __ballot_sync of
 // the lanes that generate a carry and one of the lanes that propagate
@@ -39,12 +41,12 @@
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kRowsPerBlock = 4;                  // 2 warps (strands) each
-constexpr int kThreads = kRowsPerBlock * 2 * 32;
+constexpr int kWarpsPerBlock = 8;                 // STRANDS warps per row
+constexpr int kThreads = kWarpsPerBlock * 32;
 
-template <int WPL>
+template <int WPL, int STRANDS>
 __global__ void __launch_bounds__(kThreads)
-myers_hw_2strand_kernel(const int32_t* __restrict__ peq_f,
+myers_hw_kernel(const int32_t* __restrict__ peq_f,
                         const int32_t* __restrict__ peq_r,
                         const int8_t* __restrict__ text_t,
                         const int32_t* __restrict__ lens,
@@ -55,8 +57,8 @@ myers_hw_2strand_kernel(const int32_t* __restrict__ peq_f,
                         int m, int W, int L, int B) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kRowsPerBlock + (warp >> 1);
-  const int strand = warp & 1;
+  const int row = blockIdx.x * (kWarpsPerBlock / STRANDS) + warp / STRANDS;
+  const int strand = STRANDS == 2 ? (warp & 1) : 0;
   if (row >= B) return;                 // whole warp: no barrier below
 
   const int32_t* peq = strand ? peq_r : peq_f;
@@ -151,26 +153,23 @@ myers_hw_2strand_kernel(const int32_t* __restrict__ peq_f,
   }
 }
 
-template <int WPL>
+template <int WPL, int STRANDS>
 void launch(const int32_t* peq_f, const int32_t* peq_r, const int8_t* text_t,
             const int32_t* lens, int32_t* dist_f, int32_t* end_f,
             int32_t* dist_r, int32_t* end_r, int m, int W, int L, int B,
             cudaStream_t stream) {
-  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  myers_hw_2strand_kernel<WPL><<<blocks, kThreads, 0, stream>>>(
+  constexpr int rows_per_block = kWarpsPerBlock / STRANDS;
+  const int blocks = (B + rows_per_block - 1) / rows_per_block;
+  myers_hw_kernel<WPL, STRANDS><<<blocks, kThreads, 0, stream>>>(
       peq_f, peq_r, text_t, lens, dist_f, end_f, dist_r, end_r, m, W, L, B);
 }
 
-}  // namespace
-
-// peq_f, peq_r: (5, W) 32-bit words; text_t: (L, B) int8 codes; lens: (B,);
-// outputs (B,) int32. Launches on `stream`, allocates nothing, does not
-// synchronise. Returns cudaGetLastError() (0 on success).
-extern "C" int cf_myers_hw_2strand(const void* peq_f, const void* peq_r,
-                                   const void* text_t, const void* lens,
-                                   void* dist_f, void* end_f, void* dist_r,
-                                   void* end_r, int m, int W, int L, int B,
-                                   void* stream) {
+// Checks the sizes and picks the words-per-lane instance. The strand-r
+// pointers are unused (null) with one strand.
+template <int STRANDS>
+int dispatch(const void* peq_f, const void* peq_r, const void* text_t,
+             const void* lens, void* dist_f, void* end_f, void* dist_r,
+             void* end_r, int m, int W, int L, int B, void* stream) {
   if (m < 1 || W != (m + 31) / 32 || W > 4 * 32 || L < 0 || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
@@ -185,10 +184,32 @@ extern "C" int cf_myers_hw_2strand(const void* peq_f, const void* peq_r,
   auto er = static_cast<int32_t*>(end_r);
   auto st = static_cast<cudaStream_t>(stream);
   switch (wpl) {
-    case 1: launch<1>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
-    case 2: launch<2>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
-    case 3: launch<3>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
-    default: launch<4>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
+    case 1: launch<1, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
+    case 2: launch<2, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
+    case 3: launch<3, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
+    default: launch<4, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// peq_f, peq_r: (5, W) 32-bit words; text_t: (L, B) int8 codes; lens: (B,);
+// outputs (B,) int32. Launches on `stream`, allocates nothing, does not
+// synchronise. Returns cudaGetLastError() (0 on success).
+extern "C" int cf_myers_hw_2strand(const void* peq_f, const void* peq_r,
+                                   const void* text_t, const void* lens,
+                                   void* dist_f, void* end_f, void* dist_r,
+                                   void* end_r, int m, int W, int L, int B,
+                                   void* stream) {
+  return dispatch<2>(peq_f, peq_r, text_t, lens, dist_f, end_f, dist_r,
+                     end_r, m, W, L, B, stream);
+}
+
+// One strand: peq (5, W) words; dist, end (B,) int32. Same contract.
+extern "C" int cf_myers_hw_1strand(const void* peq, const void* text_t,
+                                   const void* lens, void* dist, void* end,
+                                   int m, int W, int L, int B, void* stream) {
+  return dispatch<1>(peq, nullptr, text_t, lens, dist, end, nullptr, nullptr,
+                     m, W, L, B, stream);
 }

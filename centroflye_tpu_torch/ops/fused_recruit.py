@@ -1,15 +1,21 @@
 """Fused recruitment step: packed upload -> seed filter -> compaction ->
 two-strand Myers on the survivors, one device call per candidate batch.
 
-Counterpart of the JAX package's `ops/fused_recruit.py` on the no-N packed
-path (`_fused_body_packed`): the host uploads base codes packed 4 per
-byte; the device counts sampled unit seed hits straight from the packed
-words, moves the passing rows to the front (stable argsort of the fail
-flag), unpacks and scores only the first `k_budget` rows with
-`ops/myers_cuda.recruit_distances` (the CUDA kernel on the card), and
-scatters the distances back to row order, sentinel m for filtered rows.
-The host receives one bundled int32 array [df | dr | hits | n_pass] and
-handles n_pass > k_budget (overflow) itself.
+Counterpart of the JAX package's `ops/fused_recruit.py`: the host uploads
+base codes packed 4 per byte (plus an N bitmask, 8 per byte, when a row
+holds an in-range N); the device counts sampled unit seed hits, moves the
+passing rows to the front (stable argsort of the fail flag), scores only
+the first `k_budget` rows with `ops/myers_cuda.recruit_distances` (the
+CUDA kernel on the card), and scatters the distances back to row order,
+sentinel m for filtered rows. The host receives one bundled int32 array
+[df | dr | hits | n_pass] and handles n_pass > k_budget (overflow) itself.
+
+Two filter paths, as in the JAX package:
+- packed (no mask, an LE-keyed bitmap, seed_k <= 16, stride 1/2/4): seed
+  codes come straight from the packed words and only the survivors are
+  unpacked;
+- unpacked (an N mask, or the other settings): the batch is unpacked and
+  counted by `ops/seed_filter.seed_hit_counts_bitmap`.
 
 The glue is plain PyTorch on either device; the survivor scorer is the
 only kernel.
@@ -24,6 +30,7 @@ import torch
 
 from centroflye_tpu_torch.ops.myers import MASK
 from centroflye_tpu_torch.ops.myers_cuda import recruit_distances
+from centroflye_tpu_torch.ops.seed_filter import seed_hit_counts_bitmap
 
 
 def unpack_2bit_host(packed: np.ndarray) -> np.ndarray:
@@ -71,24 +78,33 @@ def _unpack_nomask(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts, dim=-1).reshape(B, Lq * 4)
 
 
-def make_fused_recruit(seed_bitmap_le: torch.Tensor,
+def _unpack_2bit(packed: torch.Tensor, n_mask: torch.Tensor) -> torch.Tensor:
+    """Device inverse of pack_2bit -> (B, L) int8, N/PAD as 4."""
+    B, Lq = packed.shape
+    bits = [((n_mask >> i) & 1).to(torch.bool) for i in range(8)]
+    is_n = torch.stack(bits, dim=-1).reshape(B, Lq * 4)
+    return torch.where(is_n, 4, _unpack_nomask(packed))
+
+
+def make_fused_recruit(seed_bitmap: torch.Tensor,
                        peq_fwd: torch.Tensor, peq_rc: torch.Tensor,
                        *, m: int, seed_k: int, min_hits: int,
-                       k_budget: int = 128, stride: int = 2):
+                       k_budget: int = 128, stride: int = 2,
+                       seed_bitmap_le: Optional[torch.Tensor] = None):
     """Returns fused(packed, n_mask, lens) -> (df, dr, hits, n_pass) on the
-    device of peq_fwd. seed_bitmap_le: the LE-keyed membership bitmap
-    (ops/seed_filter.build_seed_bitmap(le=True)) as an int64 tensor of
-    32-bit words; positions are sampled every `stride`. `min_hits` is in
-    stride-1 units and scaled down here so the sampled filter keeps the
-    config's strictness."""
-    if seed_k > 16 or stride not in (1, 2, 4):
-        # the packed filter reads a k-mer from one u32 word pair
-        raise NotImplementedError(
-            "only the packed filter path (seed_k <= 16, stride 1/2/4) is "
-            "ported (ROADMAP Queue 1: masked fused path)")
+    device of peq_fwd. seed_bitmap: the membership bitmap
+    (ops/seed_filter.build_seed_bitmap) as an int64 tensor of 32-bit
+    words; seed_bitmap_le, the same LE-keyed (build_seed_bitmap(le=True)),
+    enables the packed filter path. Positions are sampled every `stride`.
+    `min_hits` is in stride-1 units and scaled down here so the sampled
+    filter keeps the config's strictness."""
     min_hits = max(1, min_hits // stride)
     device = peq_fwd.device
     kmask = (1 << (2 * seed_k)) - 1
+    # the packed filter reads a k-mer from one u32 word pair (k <= 16) at
+    # in-word offsets that tile the word evenly
+    packed_path_ok = (seed_bitmap_le is not None and seed_k <= 16
+                      and stride in (1, 2, 4))
 
     def _packed_hits(W, Wn, lens, offsets):
         """Hit counts over sampled in-word phases `offsets`: W/Wn are
@@ -109,6 +125,24 @@ def make_fused_recruit(seed_bitmap_le: torch.Tensor,
             hits += found.sum(dim=1, dtype=torch.int32)
         return hits
 
+    def _score_survivors(hits, lens, survivor_codes):
+        """Compaction, scoring and scatter shared by both filter paths:
+        survivor_codes(top) gives the (kb, L) int8 codes of rows `top`."""
+        B = hits.shape[0]
+        fail = hits < min_hits
+        order = torch.argsort(fail.to(torch.int32), stable=True)  # pass first
+        top = order[:min(k_budget, B)]
+        dist_f, dist_r = recruit_distances(peq_fwd, peq_rc,
+                                           survivor_codes(top), lens[top],
+                                           m=m)
+        sub_ok = ~fail[top]
+        df = torch.full((B,), m, dtype=torch.int32, device=hits.device)
+        dr = df.clone()
+        df[top] = torch.where(sub_ok, dist_f, m)
+        dr[top] = torch.where(sub_ok, dist_r, m)
+        n_pass = (~fail).sum(dtype=torch.int32).reshape(1)
+        return torch.cat([df, dr, hits, n_pass])
+
     def _fused_body_packed(packed, lens):
         B, Lq = packed.shape
         if Lq % 4:
@@ -117,31 +151,27 @@ def make_fused_recruit(seed_bitmap_le: torch.Tensor,
         W = packed.view(torch.int32).to(torch.int64) & MASK
         Wn = torch.nn.functional.pad(W[:, 1:], (0, 1))  # next word, 0-padded
         hits = _packed_hits(W, Wn, lens, range(0, 16, stride))
-        fail = hits < min_hits
-        order = torch.argsort(fail.to(torch.int32), stable=True)  # pass first
-        top = order[:min(k_budget, B)]
-        sub_codes = _unpack_nomask(packed[top])      # unpack kb rows only
-        dist_f, dist_r = recruit_distances(peq_fwd, peq_rc, sub_codes,
-                                           lens[top], m=m)
-        sub_ok = ~fail[top]
-        df = torch.full((B,), m, dtype=torch.int32, device=packed.device)
-        dr = df.clone()
-        df[top] = torch.where(sub_ok, dist_f, m)
-        dr[top] = torch.where(sub_ok, dist_r, m)
-        n_pass = (~fail).sum(dtype=torch.int32).reshape(1)
-        return torch.cat([df, dr, hits, n_pass])
+        return _score_survivors(                      # unpack kb rows only
+            hits, lens, lambda top: _unpack_nomask(packed[top]))
+
+    def _fused_body(codes, lens):
+        hits = seed_hit_counts_bitmap(seed_bitmap, codes, lens, k=seed_k,
+                                      stride=stride)
+        return _score_survivors(hits, lens, lambda top: codes[top])
 
     def fused_raw(packed, n_mask, lens):
         """Returns the bundled device tensor [df(B), dr(B), hits(B),
-        n_pass(1)] without waiting for it. packed (B, L/4) uint8 and lens
-        (B,) int32 numpy arrays or tensors."""
-        if n_mask is not None:
-            raise NotImplementedError(
-                "the N-masked fused path is not ported (ROADMAP Queue 1: "
-                "masked fused path with seed_hit_counts_bitmap)")
+        n_pass(1)] without waiting for it. packed (B, L/4) uint8, n_mask
+        (B, L/8) uint8 or None, and lens (B,) int32: numpy arrays or
+        tensors."""
         packed = torch.as_tensor(packed).to(device)
         lens = torch.as_tensor(lens).to(device)
-        return _fused_body_packed(packed, lens)
+        if n_mask is not None:
+            n_mask = torch.as_tensor(n_mask).to(device)
+            return _fused_body(_unpack_2bit(packed, n_mask), lens)
+        if packed_path_ok:
+            return _fused_body_packed(packed, lens)
+        return _fused_body(_unpack_nomask(packed), lens)
 
     def unbundle(out: np.ndarray, B: int):
         """-> (df, dr, hits, n_pass)."""

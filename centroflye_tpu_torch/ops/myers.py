@@ -11,8 +11,9 @@ shift: PyTorch's CPU backend has no `+`, `~`, `<<`, `>>` or `<` on
 uint32. The multiword carry of the Myers addition is a Kogge-Stone
 carry-lookahead over the word axis, log2(W) steps.
 
-Covered: modes HW (infix), SHW (prefix) and NW (global) with
-collect="best" and one shared (5, W) query.
+Covered: modes HW (infix), SHW (prefix) and NW (global); one shared
+(5, W) query or per-row (B, 5, W) queries with per-row lengths `ms`;
+collect="best" (distance and end) or "all" (the score after each column).
 """
 
 from __future__ import annotations
@@ -102,54 +103,72 @@ def myers_distance_batch(
     *,
     m: int,
     mode: Literal["HW", "SHW", "NW"] = "HW",
-    collect: Literal["best"] = "best",
+    collect: Literal["best", "all"] = "best",
+    ms: torch.Tensor | None = None,
 ):
-    """Edit distance of one query against a batch of targets.
+    """Edit distance of one (or per-row) query against a batch of targets.
 
     Args:
-      peq: (5, W) int64 query table of 32-bit words (`words_tensor`).
+      peq: (5, W) int64 query table of 32-bit words (`words_tensor`), or
+        (B, 5, W) per-row queries.
       text: (B, L) int8 target codes (0..3 bases, 4 = N/PAD).
       lens: (B,) int32 actual target lengths.
-      m: query length.
+      m: query length (the widest, with per-row queries).
       mode: "HW" infix / "SHW" prefix / "NW" global (edlib.h:21-47).
       collect: "best" -> dist and end per row, where end is the 0-based
         index of the last aligned target char (first column achieving the
         min; -1 when the empty alignment m is the min or mode="NW").
+        "all" -> the (B, L) int32 score at the query's last row after
+        each column; masked columns repeat the previous score.
+      ms: optional (B,) per-row query lengths, each in [1, m]; the score
+        is then tracked at each row's own last query row. Peq rows at and
+        above ms[b] must be zero bits.
 
     Returns:
-      dict with "dist" (B,) int32 and "end" (B,) int32, on text's device.
+      dict with "dist" (B,) int32 and "end" (B,) int32, or "scores"
+      (B, L) int32, on text's device.
     """
-    if collect != "best" or peq.dim() != 2:
-        raise NotImplementedError(
-            "per-row peq and collect='all' are not ported yet "
-            "(ROADMAP Queue 1: Myers per-row peq/ms/collect='all')")
     B, L = text.shape
     W = n_words(m)
     dev = text.device
     peq = peq.to(device=dev, dtype=torch.int64)
-    if peq.shape != (5, W):
-        raise ValueError(f"peq shape {tuple(peq.shape)} != (5, {W})")
+    per_row_query = peq.dim() == 3
+    if peq.shape != ((B, 5, W) if per_row_query else (5, W)):
+        raise ValueError(f"peq shape {tuple(peq.shape)} != (5, {W}) or "
+                         f"({B}, 5, {W})")
     global_mode = mode in ("SHW", "NW")
-    hw_word, hb = (m - 1) // WORD, (m - 1) % WORD
+    if ms is None:
+        m_rows = torch.full((B,), m, dtype=torch.int64, device=dev)
+    else:
+        m_rows = ms.reshape(-1).to(device=dev, dtype=torch.int64)
+        if B and not bool(((m_rows >= 1) & (m_rows <= m)).all()):
+            raise ValueError(f"ms must lie in [1, {m}]")
+    hw_word = ((m_rows - 1) // WORD)[:, None]         # (B, 1): tap word
+    hb = (m_rows - 1) % WORD                          # (B,): tap bit
     lens = lens.reshape(-1).to(device=dev, dtype=torch.int64)
+    rows = torch.arange(B, device=dev)
 
     idx = text.to(torch.int64)
     idx = torch.where((idx >= 0) & (idx < 4), idx, 4)   # N/PAD: zero row
     vp = torch.full((B, W), MASK, dtype=torch.int64, device=dev)
     vn = torch.zeros((B, W), dtype=torch.int64, device=dev)
-    score = torch.full((B,), m, dtype=torch.int64, device=dev)
+    score = m_rows.clone()
     best = score.clone()
     final = score.clone()
     end = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    scores = (torch.empty((B, L), dtype=torch.int32, device=dev)
+              if collect == "all" else None)
 
     # columns at or past every row's length change nothing
     n_cols = min(L, int(lens.max())) if B else 0
     for j in range(n_cols):
         active = j < lens
-        eq = peq[idx[:, j]]
+        eq = peq[rows, idx[:, j]] if per_row_query else peq[idx[:, j]]
         vp_new, vn_new, hp, hn = myers_column_update(
             eq, vp, vn, global_mode=global_mode)
-        inc = ((hp[:, hw_word] >> hb) & 1) - ((hn[:, hw_word] >> hb) & 1)
+        hp_w = hp.gather(1, hw_word)[:, 0]
+        hn_w = hn.gather(1, hw_word)[:, 0]
+        inc = ((hp_w >> hb) & 1) - ((hn_w >> hb) & 1)
         sel = active[:, None]
         vp = torch.where(sel, vp_new, vp)
         vn = torch.where(sel, vn_new, vn)
@@ -158,8 +177,42 @@ def myers_distance_batch(
         best = torch.where(improved, score, best)
         end = torch.where(improved, j, end)
         final = torch.where(active & (j == lens - 1), score, final)
+        if scores is not None:
+            scores[:, j] = score
 
+    if scores is not None:
+        scores[:, n_cols:] = score[:, None]
+        return {"scores": scores}
     if mode == "NW":
         return {"dist": final.to(torch.int32),
                 "end": (lens - 1).to(torch.int32)}
     return {"dist": best.to(torch.int32), "end": end.to(torch.int32)}
+
+
+def edit_distance_oracle(query: str, text: str, mode: str = "HW"):
+    """O(mn) DP oracle (host numpy) for tests, as the JAX package's.
+
+    Returns (dist, end) with the semantics of myers_distance_batch
+    "best": end is the 0-based index of the last aligned target char, the
+    first column achieving the minimum; -1 if the empty prefix is best.
+    """
+    from centroflye_tpu_torch.io.encoding import encode
+
+    q = encode(query)
+    t = encode(text)
+    m, n = len(q), len(t)
+    prev = np.arange(m + 1, dtype=np.int64)  # column for empty target prefix
+    best, end = m, -1
+    for j in range(n):
+        cur = np.empty(m + 1, dtype=np.int64)
+        cur[0] = 0 if mode == "HW" else j + 1
+        for i in range(1, m + 1):
+            sub = prev[i - 1] + (0 if (q[i - 1] == t[j] and q[i - 1] < 4)
+                                 else 1)
+            cur[i] = min(sub, prev[i] + 1, cur[i - 1] + 1)
+        if cur[m] < best:
+            best, end = int(cur[m]), j
+        prev = cur
+    if mode == "NW":
+        return int(prev[m]), n - 1
+    return best, end

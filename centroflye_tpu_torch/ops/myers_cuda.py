@@ -1,12 +1,17 @@
-"""Two-strand HW Myers on the card: the counterpart of
-the JAX package's `ops/myers_pallas_v3.py` (`myers_hw_pallas_v3_2strand`
-and `recruit_distances_pallas`).
+"""HW Myers on the card: the counterpart of the JAX package's
+`ops/myers_pallas_v3.py`.
 
-`myers_hw_2strand` launches the CUDA kernel of
-`csrc/myers_hw_2strand.cu` for CUDA tensors. For CPU tensors it runs
-`myers_hw_2strand_plain`, the plain PyTorch version of the same function
-(two calls of `ops/myers.myers_distance_batch`), which is also what the
-kernel is compared with on the card.
+| wrapper | CUDA source | replaces |
+|---|---|---|
+| `myers_hw_2strand` (and `recruit_distances`) | `csrc/myers_hw_2strand.cu` | `myers_hw_pallas_v3_2strand`, `recruit_distances_pallas` |
+| `myers_hw_v3` | `csrc/myers_hw_2strand.cu` (one strand) | `myers_hw_pallas_v3` |
+| `myers_hw_v3_banded` | `csrc/myers_hw_banded.cu` | `myers_hw_pallas_v3_banded` |
+
+Each wrapper launches its kernel for CUDA tensors and counts the launch
+in its `launches` attribute. For CPU tensors it runs its plain PyTorch
+version (`*_plain`, built on `ops/myers.myers_distance_batch`), which is
+also what the kernel is compared with on the card. Nothing falls back: on
+a CUDA tensor a wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,15 +21,35 @@ import torch
 from centroflye_tpu_torch.ops._build import load_library
 from centroflye_tpu_torch.ops.myers import MASK, myers_distance_batch, n_words
 
-MAX_WORDS = 4 * 32      # the kernel's widest instance: 4 words per lane
+MAX_WORDS = 4 * 32      # the kernels' widest instance: 4 words per lane
+
+
+def myers_hw_v3_plain(peq, text_t, lens, *, m: int):
+    """Plain PyTorch version of the one-strand kernel: same arguments and
+    outputs as `myers_hw_v3`."""
+    out = myers_distance_batch(peq, text_t.t(), lens.reshape(-1), m=m,
+                               mode="HW")
+    return {"dist": out["dist"], "end": out["end"]}
+
+
+def threshold_hw(out: dict, *, m: int, k: int) -> dict:
+    """{"dist", "end"} -> the same where dist <= k, (m, -1) elsewhere."""
+    ok = out["dist"] <= k
+    return {"dist": torch.where(ok, out["dist"], m),
+            "end": torch.where(ok, out["end"], -1)}
+
+
+def myers_hw_v3_banded_plain(peq, text_t, lens, *, m: int, k: int):
+    """Plain PyTorch version of the banded kernel: the unbanded distances
+    thresholded at k."""
+    return threshold_hw(myers_hw_v3_plain(peq, text_t, lens, m=m), m=m, k=k)
 
 
 def myers_hw_2strand_plain(peq_f, peq_r, text_t, lens, *, m: int):
-    """Plain PyTorch version of the kernel: same arguments and outputs."""
-    text = text_t.t()
-    lens = lens.reshape(-1)
-    out_f = myers_distance_batch(peq_f, text, lens, m=m, mode="HW")
-    out_r = myers_distance_batch(peq_r, text, lens, m=m, mode="HW")
+    """Plain PyTorch version of the two-strand kernel: same arguments and
+    outputs."""
+    out_f = myers_hw_v3_plain(peq_f, text_t, lens, m=m)
+    out_r = myers_hw_v3_plain(peq_r, text_t, lens, m=m)
     return {"dist_f": out_f["dist"], "end_f": out_f["end"],
             "dist_r": out_r["dist"], "end_r": out_r["end"]}
 
@@ -46,6 +71,32 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_launch(peqs: dict, text_t, lens, m: int):
+    """Validates a CUDA call's arguments -> (W, L, B, int32 peqs)."""
+    dev = text_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    W = n_words(m)
+    if m < 1 or W > MAX_WORDS:
+        raise ValueError(f"m={m}: the kernels take 1 <= m <= "
+                         f"{32 * MAX_WORDS}")
+    if text_t.dim() != 2:
+        raise ValueError(f"text_t must be (L, B), got {tuple(text_t.shape)}")
+    L, B = text_t.shape
+    _check("text_t", text_t, torch.int8, (L, B), dev)
+    for name, peq in peqs.items():
+        _check(name, peq, torch.int64, (5, W), dev)
+    _check("lens", lens, torch.int32, tuple(lens.shape), dev)
+    if lens.numel() != B or lens.dim() not in (1, 2):
+        raise ValueError(f"lens shape {tuple(lens.shape)} for B={B}")
+    return W, L, B, [_words_as_int32(p) for p in peqs.values()]
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
 def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int):
     """HW edit distance of the unit (peq_f) and of its reverse complement
     (peq_r) against each text column of text_t, plus the first column
@@ -56,26 +107,12 @@ def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int):
     int32. Columns at or past lens do not move the score. Returns
     {"dist_f", "end_f", "dist_r", "end_r"}, each (B,) int32.
     """
-    dev = text_t.device
-    if dev.type == "cpu":
+    if text_t.device.type == "cpu":
         return myers_hw_2strand_plain(peq_f, peq_r, text_t, lens, m=m)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    W = n_words(m)
-    if W > MAX_WORDS:
-        raise ValueError(f"m={m} needs {W} words; the kernel takes at most "
-                         f"{MAX_WORDS} (m <= {32 * MAX_WORDS})")
-    if text_t.dim() != 2:
-        raise ValueError(f"text_t must be (L, B), got {tuple(text_t.shape)}")
-    L, B = text_t.shape
-    _check("text_t", text_t, torch.int8, (L, B), dev)
-    _check("peq_f", peq_f, torch.int64, (5, W), dev)
-    _check("peq_r", peq_r, torch.int64, (5, W), dev)
-    _check("lens", lens, torch.int32, tuple(lens.shape), dev)
-    if lens.numel() != B or lens.dim() not in (1, 2):
-        raise ValueError(f"lens shape {tuple(lens.shape)} for B={B}")
+    W, L, B, (pf, pr) = _check_launch({"peq_f": peq_f, "peq_r": peq_r},
+                                      text_t, lens, m)
+    dev = text_t.device
     lib = load_library()
-    pf, pr = _words_as_int32(peq_f), _words_as_int32(peq_r)
     out = torch.empty((4, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -83,15 +120,63 @@ def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int):
             pf.data_ptr(), pr.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), m, W, L, B, stream)
-    if rc != 0:
-        raise RuntimeError(f"cf_myers_hw_2strand launch failed: CUDA error "
-                           f"{rc}")
+    _raise_on(rc, "cf_myers_hw_2strand")
     myers_hw_2strand.launches += 1
     return {"dist_f": out[0], "end_f": out[1],
             "dist_r": out[2], "end_r": out[3]}
 
 
 myers_hw_2strand.launches = 0
+
+
+def myers_hw_v3(peq, text_t, lens, *, m: int):
+    """One-strand form of `myers_hw_2strand`: peq (5, W) int64 words,
+    text_t (L, B) int8, lens (B,) or (B, 1) int32 -> {"dist", "end"},
+    each (B,) int32."""
+    if text_t.device.type == "cpu":
+        return myers_hw_v3_plain(peq, text_t, lens, m=m)
+    W, L, B, (pq,) = _check_launch({"peq": peq}, text_t, lens, m)
+    dev = text_t.device
+    lib = load_library()
+    out = torch.empty((2, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cf_myers_hw_1strand(
+            pq.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), m, W, L, B, stream)
+    _raise_on(rc, "cf_myers_hw_1strand")
+    myers_hw_v3.launches += 1
+    return {"dist": out[0], "end": out[1]}
+
+
+myers_hw_v3.launches = 0
+
+
+def myers_hw_v3_banded(peq, text_t, lens, *, m: int, k: int):
+    """Threshold-k HW distances: `myers_hw_v3`'s (dist, end) where
+    dist <= k, (m, -1) elsewhere. Same arguments, plus k >= 0. On the
+    card only the query rows inside an Ukkonen band are computed
+    (`csrc/myers_hw_banded.cu`)."""
+    if k < 0:
+        raise ValueError(f"k={k} must be >= 0")
+    if text_t.device.type == "cpu":
+        return myers_hw_v3_banded_plain(peq, text_t, lens, m=m, k=k)
+    W, L, B, (pq,) = _check_launch({"peq": peq}, text_t, lens, m)
+    dev = text_t.device
+    lib = load_library()
+    out = torch.empty((2, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cf_myers_hw_banded(
+            pq.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), m, W, L, B, min(k, m),
+            stream)
+    _raise_on(rc, "cf_myers_hw_banded")
+    myers_hw_v3_banded.launches += 1
+    return {"dist": out[0], "end": out[1]}
+
+
+myers_hw_v3_banded.launches = 0
 
 
 def recruit_distances(peq_fwd, peq_rc, codes, lens, *, m: int):

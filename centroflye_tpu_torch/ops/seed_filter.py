@@ -1,5 +1,7 @@
-"""Seed prefilter tables for read recruitment (host numpy), identical to
-the JAX package's `ops/seed_filter.py`.
+"""Seed prefilter for read recruitment, as the JAX package's
+`ops/seed_filter.py`: host numpy tables (`build_seed_table`,
+`build_seed_bitmap`), the host prescan, and the device hit counts
+(`seed_hit_counts_bitmap`, `seed_hit_counts`) in plain PyTorch.
 
 The recruitment decision is overwhelmingly negative on real data, so a
 cheap exact-membership seed scan runs before the Myers alignment: rows
@@ -10,9 +12,26 @@ path for parity runs.
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Tuple
 
-from centroflye_tpu_torch.io.encoding import encode, kmer_codes, revcomp_str
+import numpy as np
+import torch
+
+from centroflye_tpu_torch.io.encoding import (encode, kmer_codes,
+                                              revcomp_str, split_u64)
+from centroflye_tpu_torch.ops.kmers import lookup_codes, pack_kmers
+
+
+def build_seed_table(unit: str, k: int = 13) -> Tuple[np.ndarray,
+                                                      np.ndarray]:
+    """Sorted (hi, lo) uint32 table of the unit's seed k-mers, both
+    strands, over the doubled unit (instance-crossing seeds included)."""
+    seqs = [unit + unit[:k - 1], revcomp_str(unit + unit[:k - 1])]
+    codes = []
+    for s in seqs:
+        c, valid = kmer_codes(encode(s), k)
+        codes.append(c[valid])
+    return split_u64(np.unique(np.concatenate(codes)))
 
 
 def build_seed_bitmap(unit: str, k: int = 13, *, le: bool = False
@@ -64,3 +83,33 @@ def host_prescan_hits(packed: np.ndarray, lens: np.ndarray,
     got = bitmap_le[(code >> np.uint32(5)).astype(np.int64)]
     found = (((got >> (code & np.uint32(31))) & 1) == 1) & valid
     return found.sum(axis=1, dtype=np.int32)
+
+
+def seed_hit_counts_bitmap(bitmap: torch.Tensor, codes: torch.Tensor,
+                           lens: torch.Tensor, *, k: int, stride: int = 1):
+    """Per-row count of read k-mers present in the seed bitmap (int64
+    tensor of 32-bit words, `build_seed_bitmap`), sampling every
+    `stride`-th position. codes: (B, L) int8 -> (B,) int32 hit counts.
+
+    The bitmap is indexed by the low word of the code; as in the JAX
+    package, a word index past the bitmap reads its last word (JAX's
+    gather clamps), which only happens when k exceeds the bitmap's k."""
+    _, lo, valid = pack_kmers(codes, lens, k=k)
+    lo = lo[:, ::stride]
+    valid = valid[:, ::stride]
+    word = torch.where(valid, lo >> 5, 0).clamp(max=bitmap.shape[0] - 1)
+    got = bitmap[word]
+    found = (((got >> (lo & 31)) & 1) == 1) & valid
+    return found.sum(dim=1, dtype=torch.int32)
+
+
+def seed_hit_counts(table_hi: torch.Tensor, table_lo: torch.Tensor,
+                    codes: torch.Tensor, lens: torch.Tensor, *, k: int):
+    """Per-row count of read k-mers present in the sorted seed table
+    (`build_seed_table` as int64 tensors), by binary search.
+    codes: (B, L) int8 -> (B,) int32 hit counts."""
+    hi, lo, valid = pack_kmers(codes, lens, k=k)
+    found, _ = lookup_codes(table_hi, table_lo, hi.reshape(-1),
+                            lo.reshape(-1))
+    found = found.reshape(hi.shape) & valid
+    return found.sum(dim=1, dtype=torch.int32)

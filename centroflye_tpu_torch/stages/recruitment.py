@@ -78,6 +78,9 @@ class RecruitmentEngine:
             from centroflye_tpu_torch.ops.fused_recruit import (
                 make_fused_recruit)
             self.k_budget = 128
+            self._seed_hi = state["seed_hi"].to(self.device)
+            self._seed_lo = state["seed_lo"].to(self.device)
+            self._seed_bitmap = state["bitmap"].to(self.device)
             self._bitmap_le = state["bitmap_le"].to(self.device)
             self._bitmap_le_host = state["bitmap_le"].cpu().numpy().astype(
                 np.uint32)                  # for the host prescan
@@ -85,9 +88,10 @@ class RecruitmentEngine:
             # drops most rows before upload
             self.cand_batch = min(self.batch, 256)
             self._fused = make_fused_recruit(
-                self._bitmap_le, self.peq_fwd, self.peq_rc,
+                self._seed_bitmap, self.peq_fwd, self.peq_rc,
                 m=self.m, seed_k=self.config.seed_k,
-                min_hits=self.config.min_seed_hits, k_budget=self.k_budget)
+                min_hits=self.config.min_seed_hits, k_budget=self.k_budget,
+                seed_bitmap_le=self._bitmap_le)
 
     @staticmethod
     def _build_state(unit: str, config: RecruitmentConfig, device) -> dict:
@@ -97,9 +101,15 @@ class RecruitmentEngine:
                                         device)}
         if config.prefilter:
             from centroflye_tpu_torch.ops.seed_filter import (
-                build_seed_bitmap)
+                build_seed_bitmap, build_seed_table)
+            k = config.seed_k
+            seed_hi, seed_lo = build_seed_table(unit, k=k)
+            state["seed_hi"] = words_tensor(seed_hi, device)
+            state["seed_lo"] = words_tensor(seed_lo, device)
+            state["bitmap"] = words_tensor(build_seed_bitmap(unit, k=k),
+                                           device)
             state["bitmap_le"] = words_tensor(
-                build_seed_bitmap(unit, k=config.seed_k, le=True), device)
+                build_seed_bitmap(unit, k=k, le=True), device)
         return state
 
     @classmethod
@@ -108,6 +118,18 @@ class RecruitmentEngine:
         """Engine over carried tables (convert.recruitment_state_from_numpy)
         instead of tables built from `unit`."""
         return cls(unit, config, seg_len=seg_len, device=device, state=state)
+
+    def seed_counts(self, codes: np.ndarray, lens: np.ndarray):
+        """(B, SEG) int8 batch -> (B,) int32 numpy seed hit counts (both
+        strands) by binary search in the seed table, on the engine's
+        device. Needs the prefilter's tables."""
+        from centroflye_tpu_torch.ops.seed_filter import seed_hit_counts
+        counts = seed_hit_counts(
+            self._seed_hi, self._seed_lo,
+            torch.from_numpy(np.asarray(codes)).to(self.device),
+            torch.from_numpy(np.asarray(lens)).to(self.device),
+            k=self.config.seed_k)
+        return counts.cpu().numpy()
 
     def distances(self, codes: np.ndarray, lens: np.ndarray):
         """(B, SEG) int8 batch -> (dist_fwd, dist_rc) each (B,) int32

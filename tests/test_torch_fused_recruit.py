@@ -1,6 +1,7 @@
 """The port's fused recruitment step against JAX `make_fused_recruit` on
 the same packed batches: the bundled [df | dr | hits | n_pass] output is
-equal, element for element, with and without survivor overflow."""
+equal, element for element, with and without survivor overflow, on the
+packed path, the N-masked path and the unpacked filter path."""
 
 import numpy as np
 import pytest
@@ -24,10 +25,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _batch(seed, B, L, n_tandem):
+def _batch(seed, B, L, n_tandem, with_n=False):
     """Packed candidate batch: tandem rows on both strands, rows with a
     short unit fragment (some pass the sampled filter, some fail),
-    random rows, a zero-length row and short rows."""
+    random rows, a zero-length row and short rows; with_n puts N runs in
+    range on every fifth row (tandem rows included) and returns the
+    mask."""
     rng = np.random.default_rng(seed)
     unit = gen_random_seq(rng, 120)
     rc = jenc.revcomp_str(unit)
@@ -46,23 +49,34 @@ def _batch(seed, B, L, n_tandem):
     lens = np.minimum(lens, rng.integers(L // 2, L + 1, B)).astype(np.int32)
     lens[B - 1] = 0
     lens[B - 2] = 17
+    if with_n:
+        for r in range(0, B, 5):
+            s = int(rng.integers(0, max(1, lens[r] - 6)))
+            codes[r, s:s + 6] = 4
     packed, n_mask = jfused.pack_2bit(codes, lens)
-    assert n_mask is None
+    assert (n_mask is None) != with_n
+    if with_n:
+        return unit, packed, n_mask, lens
     return unit, packed, lens
 
 
-def _pair(unit, k_budget, stride, device="cpu"):
+def _pair(unit, k_budget, stride, device="cpu", seed_k=13, packed=True):
+    """(JAX, port) fused steps over the same tables; packed=False gives
+    both no LE bitmap, so the no-mask batches take the unpacked path."""
     uc = jenc.encode(unit)
     pf, pr = build_peq(uc), build_peq(jenc.revcomp(uc))
     bm = build_seed_bitmap(unit, 13)
-    bm_le = build_seed_bitmap(unit, 13, le=True)
+    bm_le = build_seed_bitmap(unit, 13, le=True) if packed else None
     jax_fused = jfused.make_fused_recruit(
-        bm, pf, pr, m=len(unit), seed_k=13, min_hits=8, k_budget=k_budget,
-        stride=stride, use_pallas=False, mesh=None, seed_bitmap_le=bm_le)
+        bm, pf, pr, m=len(unit), seed_k=seed_k, min_hits=8,
+        k_budget=k_budget, stride=stride, use_pallas=False, mesh=None,
+        seed_bitmap_le=bm_le)
     port_fused = tfused.make_fused_recruit(
-        words_tensor(bm_le, device), words_tensor(pf, device),
-        words_tensor(pr, device), m=len(unit), seed_k=13, min_hits=8,
-        k_budget=k_budget, stride=stride)
+        words_tensor(bm, device), words_tensor(pf, device),
+        words_tensor(pr, device), m=len(unit), seed_k=seed_k, min_hits=8,
+        k_budget=k_budget, stride=stride,
+        seed_bitmap_le=None if bm_le is None else words_tensor(bm_le,
+                                                               device))
     return jax_fused, port_fused
 
 
@@ -90,11 +104,46 @@ def test_fused_bundle_matches_jax(B, n_tandem, k_budget, stride):
 
 
 def test_fused_rejects_n_mask():
-    unit, packed, lens = _batch(1, 8, 64, 2)
-    _, port_fused = _pair(unit, 128, 2)
-    n_mask = np.zeros((8, 8), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_fused.raw(packed, n_mask, lens)
+    """An N mask, once rejected, now takes the masked path: the bundle
+    equals JAX's, and N bases match nothing. A mask of the wrong shape is
+    rejected."""
+    unit, packed, n_mask, lens = _batch(1, 40, 320, 12, with_n=True)
+    jax_fused, port_fused = _pair(unit, 128, 2)
+    want = np.asarray(jax_fused.raw(packed, n_mask, lens))
+    got = port_fused.raw(packed, n_mask, lens)
+    np.testing.assert_array_equal(got.numpy(), want)
+    masked = port_fused(packed, n_mask, lens)
+    unmasked = port_fused(packed, None, lens)     # N read as base A
+    assert not np.array_equal(masked[2], unmasked[2])
+    with pytest.raises(RuntimeError):
+        port_fused.raw(packed, n_mask[:, :-1], lens)
+
+
+@pytest.mark.parametrize("B,n_tandem,k_budget", [(64, 12, 128),
+                                                 (256, 150, 128)])
+def test_fused_masked_bundle_matches_jax(B, n_tandem, k_budget):
+    unit, packed, n_mask, lens = _batch(B + 3, B, 320, n_tandem, with_n=True)
+    jax_fused, port_fused = _pair(unit, k_budget, 2)
+    want = np.asarray(jax_fused.raw(packed, n_mask, lens))
+    got = port_fused.raw(packed, n_mask, lens)
+    assert got.dtype == torch.int32 and got.shape == (3 * B + 1,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed_k,stride,packed", [
+    (17, 2, True),      # k > 16: no packed filter even with an LE bitmap
+    (13, 3, True),      # stride outside (1, 2, 4)
+    (13, 2, False),     # no LE bitmap
+    (17, 3, True),
+])
+def test_fused_unpacked_filter_path_matches_jax(seed_k, stride, packed):
+    unit, packed_rows, lens = _batch(seed_k + stride, 64, 320, 12)
+    jax_fused, port_fused = _pair(unit, 32, stride, seed_k=seed_k,
+                                  packed=packed)
+    want = np.asarray(jax_fused.raw(packed_rows, None, lens))
+    got = port_fused.raw(packed_rows, None, lens)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert port_fused.min_hits == jax_fused.min_hits
 
 
 @pytest.mark.gpu
@@ -106,3 +155,14 @@ def test_fused_bundle_on_gpu_matches_cpu(cuda):
     got = gpu_fused.raw(packed, None, lens).cpu()
     assert myers_hw_2strand.launches == before + 1
     assert torch.equal(got, cpu_fused.raw(packed, None, lens))
+
+
+@pytest.mark.gpu
+def test_fused_masked_bundle_on_gpu_matches_cpu(cuda):
+    unit, packed, n_mask, lens = _batch(11, 256, 1024, 150, with_n=True)
+    _, cpu_fused = _pair(unit, 128, 2)
+    _, gpu_fused = _pair(unit, 128, 2, cuda)
+    before = myers_hw_2strand.launches
+    got = gpu_fused.raw(packed, n_mask, lens).cpu()
+    assert myers_hw_2strand.launches == before + 1
+    assert torch.equal(got, cpu_fused.raw(packed, n_mask, lens))

@@ -1,6 +1,7 @@
-"""The port's Myers: plain `myers_distance_batch` against the JAX scan
+"""The port's Myers: plain `myers_distance_batch` (shared and per-row
+queries, per-row lengths, collect "best" and "all") against the JAX scan
 and the DP oracle, and the two-strand kernel's plain version against the
-JAX Pallas kernel (interpret mode). Exact: distances and ends are
+JAX Pallas kernel (interpret mode). Exact: distances, ends and scores are
 integers. The CUDA kernel itself is compared with its plain version in
 the `gpu` tests, which skip without a card."""
 
@@ -13,7 +14,9 @@ from centroflye_tpu.io import encoding as jenc
 from centroflye_tpu.ops import myers as jmyers
 from centroflye_tpu.ops.myers_pallas_v3 import myers_hw_pallas_v3_2strand
 
-from centroflye_tpu_torch.ops.myers import (build_peq, myers_distance_batch,
+from centroflye_tpu_torch.ops.myers import (build_peq,
+                                            edit_distance_oracle,
+                                            myers_distance_batch,
                                             words_tensor)
 from centroflye_tpu_torch.ops.myers_cuda import (
     myers_hw_2strand, myers_hw_2strand_plain, recruit_distances)
@@ -80,10 +83,102 @@ def test_myers_distance_batch_ignores_columns_past_len():
 
 
 def test_myers_rejects_unported_modes():
-    peq = torch.zeros((2, 5, 1), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        myers_distance_batch(peq, torch.zeros((2, 4), dtype=torch.int8),
-                             torch.zeros(2, dtype=torch.int32), m=4)
+    """Per-row queries and collect="all", once rejected, now run and
+    equal the JAX scan; malformed ms and peq shapes are rejected."""
+    rng = np.random.default_rng(4)
+    q = [jenc.encode(_dna(rng, 4)), jenc.encode(_dna(rng, 3))]
+    peq = np.stack([build_peq(q[0], 4), build_peq(q[1], 4)])
+    codes = rng.integers(0, 5, (2, 6)).astype(np.int8)
+    lens = np.array([6, 4], np.int32)
+    ms = np.array([4, 3], np.int32)
+    got = myers_distance_batch(words_tensor(peq, "cpu"),
+                               torch.from_numpy(codes),
+                               torch.from_numpy(lens), m=4, collect="all",
+                               ms=torch.from_numpy(ms))
+    want = jmyers.myers_distance_batch(
+        jnp.asarray(peq), jnp.asarray(codes), jnp.asarray(lens), m=4,
+        collect="all", ms=jnp.asarray(ms))
+    np.testing.assert_array_equal(got["scores"].numpy(),
+                                  np.asarray(want["scores"]))
+    for bad_ms in ([0, 3], [5, 3]):
+        with pytest.raises(ValueError, match="ms"):
+            myers_distance_batch(words_tensor(peq, "cpu"),
+                                 torch.from_numpy(codes),
+                                 torch.from_numpy(lens), m=4,
+                                 ms=torch.tensor(bad_ms))
+    with pytest.raises(ValueError, match="peq shape"):
+        myers_distance_batch(words_tensor(peq[:1], "cpu"),
+                             torch.from_numpy(codes),
+                             torch.from_numpy(lens), m=4)
+
+
+@pytest.mark.parametrize("mode", ["HW", "SHW", "NW"])
+@pytest.mark.parametrize("m", [1, 32, 33, 70, 300])
+def test_myers_per_row_queries_match_jax(m, mode):
+    """(B, 5, W) per-row queries with per-row lengths ms <= m (ms < m on
+    most rows), collect "best" and "all", against the JAX scan."""
+    rng = np.random.default_rng(2000 + m)
+    B, L = 9, m + 40
+    ms = rng.integers(1, m + 1, B).astype(np.int32)
+    ms[0] = m
+    queries = [_dna(rng, int(n)) for n in ms]
+    peq = np.stack([build_peq(jenc.encode(q), m) for q in queries])
+    texts = [_dna(rng, 5) + queries[b] + _dna(rng, 5) if b % 3 == 0
+             else _dna(rng, int(rng.integers(0, L + 1))) for b in range(B)]
+    texts[1] = texts[1][:3] + "NN" + texts[1][5:]
+    codes, lens = jenc.encode_batch(texts, max_len=L)
+    lens = np.minimum(lens, L).astype(np.int32)
+    args_t = (words_tensor(peq, "cpu"), torch.from_numpy(codes),
+              torch.from_numpy(lens))
+    args_j = (jnp.asarray(peq), jnp.asarray(codes), jnp.asarray(lens))
+    for collect in ("best", "all"):
+        got = myers_distance_batch(*args_t, m=m, mode=mode, collect=collect,
+                                   ms=torch.from_numpy(ms))
+        want = jmyers.myers_distance_batch(*args_j, m=m, mode=mode,
+                                           collect=collect,
+                                           ms=jnp.asarray(ms))
+        assert want.keys() == got.keys()
+        for key in want:
+            assert got[key].dtype == torch.int32
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(want[key]),
+                                          err_msg=f"{collect} {key}")
+    if mode != "NW":
+        for b in (0, 3):
+            d, e = jmyers.edit_distance_oracle(queries[b], texts[b], mode)
+            best = myers_distance_batch(*args_t, m=m, mode=mode,
+                                        ms=torch.from_numpy(ms))
+            assert (int(best["dist"][b]), int(best["end"][b])) == (d, e)
+
+
+@pytest.mark.parametrize("mode", ["HW", "SHW", "NW"])
+def test_collect_all_shared_query_matches_jax(mode):
+    """collect="all" with one shared query: masked columns, including
+    those past every row's length, repeat the last score."""
+    rng = np.random.default_rng(77)
+    q = _dna(rng, 45)
+    codes, lens = jenc.encode_batch(_texts(rng, q), max_len=90)
+    peq = build_peq(jenc.encode(q))
+    got = myers_distance_batch(words_tensor(peq, "cpu"),
+                               torch.from_numpy(codes),
+                               torch.from_numpy(lens), m=45, mode=mode,
+                               collect="all")
+    want = jmyers.myers_distance_batch(jnp.asarray(peq), jnp.asarray(codes),
+                                       jnp.asarray(lens), m=45, mode=mode,
+                                       collect="all")
+    np.testing.assert_array_equal(got["scores"].numpy(),
+                                  np.asarray(want["scores"]))
+    assert got["scores"].shape == (codes.shape[0], 90)
+
+
+@pytest.mark.parametrize("mode", ["HW", "SHW", "NW"])
+def test_edit_distance_oracle_matches_jax(mode):
+    rng = np.random.default_rng(31)
+    for _ in range(6):
+        q = _dna(rng, int(rng.integers(1, 40)))
+        for t in _texts(rng, q, n_random=2):
+            assert edit_distance_oracle(q, t, mode) == \
+                jmyers.edit_distance_oracle(q, t, mode), (q, t)
 
 
 def _kernel_case(seed, m, L, B):

@@ -162,6 +162,28 @@ def test_state_from_jax_engine(prefilter):
     assert _tuples(eng.run(reads)) == _tuples(jeng.run(reads))
 
 
+@pytest.mark.parametrize("seed_k", [13, 11])
+def test_seed_counts_match_jax(seed_k):
+    """RecruitmentEngine.seed_counts (binary search in the seed table)
+    equals the JAX engine's on one exact-tier batch of the stream."""
+    from centroflye_tpu.io.encoding import encode_batch
+    unit, reads = _stream(seed=3, n_short_tandem=10)
+    codes, lens = encode_batch([s for _, s in reads], max_len=SEG_LEN)
+    lens = np.minimum(lens, SEG_LEN).astype(np.int32)
+    jeng = jrec.RecruitmentEngine(
+        unit, JConfig(threshold=THRESHOLD, batch_size=16, seed_k=seed_k),
+        seg_len=SEG_LEN, use_pallas=False, mesh=None)
+    eng = trec.RecruitmentEngine(
+        unit, RecruitmentConfig(threshold=THRESHOLD, batch_size=16,
+                                seed_k=seed_k),
+        seg_len=SEG_LEN, device="cpu")
+    got = eng.seed_counts(codes, lens)
+    want = jeng.seed_counts(codes, lens)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert got[0] > 100 and got[2] < 10        # tandem read, background
+
+
 def test_segment_starts_match_jax():
     for rlen in (0, 1, 511, 512, 513, 1700, 5000):
         for seg, ov in ((512, 189), (1000, 300)):
@@ -176,7 +198,12 @@ sys.modules["jax"] = None
 import numpy as np
 from centroflye_tpu_torch.config import RecruitmentConfig
 from centroflye_tpu_torch.pipeline.simulate import add_read_noise, gen_random_seq
+import torch
 from centroflye_tpu_torch.stages.recruitment import RecruitmentEngine
+from centroflye_tpu_torch.ops import kmers, seed_filter, fused_recruit
+from centroflye_tpu_torch.ops.myers import build_peq, myers_distance_batch
+from centroflye_tpu_torch.ops.myers_cuda import (myers_hw_v3,
+                                                 myers_hw_v3_banded)
 rng = np.random.default_rng(0)
 unit = gen_random_seq(rng, 120)
 reads = [("t", add_read_noise(rng, unit * 4, 0.05)),
@@ -186,6 +213,18 @@ for pf in (True, False):
         batch_size=8, prefilter=pf), seg_len=512, device="cpu")
     got = [r.recruited for r in eng.run(reads)]
     assert got == [True, False], got
+    if pf:
+        assert (eng.seed_counts(np.zeros((1, 512), np.int8),
+                                np.array([512], np.int32)) == 0).all()
+codes = torch.from_numpy(np.tile(np.arange(4, dtype=np.int8), 40)[None])
+lens = torch.tensor([160], dtype=torch.int32)
+peq = torch.from_numpy(build_peq(codes[0, :30].numpy()).astype(np.int64))
+assert myers_hw_v3(peq, codes.t().contiguous(), lens, m=30)["dist"][0] == 0
+assert myers_hw_v3_banded(peq, codes.t().contiguous(), lens, m=30,
+                          k=3)["end"][0] == 29
+assert myers_distance_batch(peq[None], codes, lens, m=30, collect="all",
+                            ms=torch.tensor([30]))["scores"].shape == (1, 160)
+assert kmers.pack_kmers(codes, lens, k=13)[2].all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] == "centroflye_tpu")
 assert not bad, bad
 print("ok")
