@@ -13,27 +13,51 @@
 //   - inc = bit (m-1) of hp minus bit (m-1) of hn, taken before the shift;
 //   - only columns j < lens[b] move score and best; `improved` is strict,
 //     so end is the first column reaching the minimum; lens 0 -> (m, -1).
-// Padding bits above m have zero peq; carries only move upward, so they
-// never reach row m-1.
 //
-// What bounds it: integer ALU and shuffle latency, not bytes. Each column
-// is a chain of dependent word operations over W = ceil(m/32) words
-// (65 for DXZ1) for each strand; a row reads one byte per column.
-// DXZ1's 65 words of vp/vn/peq are too much state for one thread.
+// What bounds it: integer issue, not bytes. A column costs about 11
+// 32-bit operations per query word (the add with its carry, d0, hp, hn,
+// two funnel shifts, vp, vn, the Eq fetch) over W = ceil(m/32) words (65
+// for DXZ1) per strand, while a row reads one byte per column: a
+// 2048 x 10240 batch is 21 MB, a few microseconds of memory time. With few
+// rows (the fused step's 128) the card is not full: each warp has a
+// scheduler to itself, and its own issue and dependent operations set the
+// time. So the design spends as few instructions per word-column as it
+// can, outside the words too, and keeps nothing but the words' own chain
+// between one step and the next.
 //
-// Design: one warp per (row, strand), the strands of a row side by side
-// in one block of 8 warps (STRANDS is a template parameter). Lane l holds
-// the contiguous words [l*WPL, (l+1)*WPL) in registers (WPL = ceil(W/32) is a template parameter, 1..4: 3 for
-// DXZ1, 4 for D6Z1). The Myers add ripples within a lane; the carry
-// between lanes is a carry-lookahead over the warp: one __ballot_sync of
-// the lanes that generate a carry and one of the lanes that propagate
-// it, after which every lane's carry-in is a bit of one 32-bit add. The
-// hp/hn shift hands each lane's top bit to the next lane with
-// __shfl_up_sync, and the lane that owns row m-1 broadcasts the score
-// change with __shfl_sync. Text comes in 32-column chunks, one byte per
-// lane held in a register and handed out column by column with
-// __shfl_sync, so the kernel uses no shared memory and no block barrier;
-// each warp stops at its own row's length.
+// Design: a wavefront over a group of G lanes (G = 8 or 32, a template
+// parameter) per (row, strand); a warp holds 32/G problems, the
+// strands of a row side by side. Lane l of a group holds the contiguous
+// word slots [l*WPL, (l+1)*WPL) (WPL = ceil(W/G), a template parameter).
+// At step s, lane l computes column s-1-l: all it needs from the rows
+// below it for that column (the carry out of the add's top word, the top
+// bits of hp and hn before the shift, and the code of the lane's next
+// column) lane l-1 computed at step s-1, and one __shfl_up_sync of one
+// packed word per step hands it on. There is no warp-wide carry-lookahead:
+// the carry ripples within a lane and moves one lane a step. The group
+// runs n + tap_lane + 1 steps for a row of n columns.
+//   - The query sits at the top of the used lanes' bits: the pad =
+//     lanes*WPL*32 - m spare bits lie below row 0, where a bit with Eq 0,
+//     vp 1, vn 0 and zero inputs keeps its state and sends zeros upward.
+//     So row m-1 is bit 31 of the last used lane's last slot (the tap
+//     lane): the top bits of hp and hn that the packet carries anyway are
+//     its score change, and only that lane's score, best and end count,
+//     with no per-column broadcast and no runtime word or bit index.
+//   - Eq: the block keeps each strand's peq in shared memory, laid out by
+//     slot (5 x G*WPL words per strand, zero outside the query), and a lane
+//     reads its WPL words with one load each. Lanes learn the code of
+//     their next column a step early, so the load of the next column's Eq
+//     is off the step's dependent chain. (Eq from bit planes of the query
+//     in registers, three logic ops a word, was tried and was slower at
+//     2048 rows, where integer issue rules.)
+//   - Text: only lane 0 of a group reads it, one byte per column at
+//     stride B, loaded kUnroll columns ahead. Before its column 0 a lane
+//     is idle (its score change is 0), and past the row's length lane 0
+//     feeds N: a column that matches nothing lowers no cell (by induction
+//     down the column), so the score cannot improve there. So no lane
+//     freezes or gates anything when a warp's groups differ in length.
+// No TMA, wgmma or async-copy pipeline: the kernel moves few bytes and is
+// bound by integer issue.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,153 +65,166 @@
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarpsPerBlock = 8;                 // STRANDS warps per row
-constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kThreads = 64;        // two warps a block: a small batch spreads over the SMs
+constexpr int kUnroll = 4;          // steps per text prefetch (even)
+constexpr int kMaxWords = 128;      // m <= 4096
+constexpr int kCodes = 5;           // A, C, G, T, and N/PAD (Eq = 0)
 
-template <int WPL, int STRANDS>
+struct Args {
+  const int32_t* peq_f;
+  const int32_t* peq_r;
+  const int8_t* text_t;
+  const int32_t* lens;
+  int32_t* dist_f;
+  int32_t* end_f;
+  int32_t* dist_r;
+  int32_t* end_r;
+  int m, W, L, B;
+};
+
+template <int G, int WPL, int STRANDS>
 __global__ void __launch_bounds__(kThreads)
-myers_hw_kernel(const int32_t* __restrict__ peq_f,
-                        const int32_t* __restrict__ peq_r,
-                        const int8_t* __restrict__ text_t,
-                        const int32_t* __restrict__ lens,
-                        int32_t* __restrict__ dist_f,
-                        int32_t* __restrict__ end_f,
-                        int32_t* __restrict__ dist_r,
-                        int32_t* __restrict__ end_r,
-                        int m, int W, int L, int B) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * (kWarpsPerBlock / STRANDS) + warp / STRANDS;
-  const int strand = STRANDS == 2 ? (warp & 1) : 0;
-  if (row >= B) return;                 // whole warp: no barrier below
+myers_hw_wavefront(const Args a) {
+  constexpr int S = G * WPL;                    // word slots of a group
+  constexpr uint32_t kRow = 4u * S;             // bytes of one code's Eq row
+  constexpr uint32_t kRowBits = 0x3FFFFFFCu;    // the Eq row offset in a packet
+  __shared__ uint32_t table[STRANDS * kCodes * S];   // [strand][code][slot]
+  const int used = (a.W + WPL - 1) / WPL;       // lanes holding words
+  const int pad = used * WPL * 32 - a.m;        // neutral bits below row 0
+  for (int k = threadIdx.x; k < STRANDS * kCodes * S; k += kThreads) {
+    const int s = k / (kCodes * S), c = (k / S) % kCodes;
+    const int32_t* peq = (s ? a.peq_r : a.peq_f) + c * a.W;
+    auto word = [&](int w) -> uint32_t {
+      return c < 4 && w >= 0 && w < a.W ? static_cast<uint32_t>(peq[w]) : 0u;
+    };
+    const int r0 = (k % S) * 32 - pad;          // query row at the slot's bit 0
+    table[k] = __funnelshift_r(word(r0 >> 5), word((r0 >> 5) + 1), r0 & 31);
+  }
+  __syncthreads();
 
-  const int32_t* peq = strand ? peq_r : peq_f;
-  uint32_t p0[WPL], p1[WPL], p2[WPL], p3[WPL], vp[WPL], vn[WPL];
+  const int gl = threadIdx.x & (G - 1);         // lane within the group
+  const int problem = (blockIdx.x * kThreads + threadIdx.x) / G;
+  const int row = problem / STRANDS;
+  const int strand = problem % STRANDS;
+  const int n = row < a.B ? max(0, min(a.lens[row], a.L)) : 0;
+  const int n_warp = __reduce_max_sync(kFull, n);
+  const int tap_lane = used - 1;
+  const bool lead = gl == 0;
+  // byte offset of this lane's slots in the code-0 row of its strand
+  const uint32_t tab = (strand * kCodes * S + gl * WPL) * 4u;
+  const char* table_bytes = reinterpret_cast<const char*>(table);
+
+  // lane 0 reads the text, a column a call at stride B: the Eq row offset
+  // of column j's code, N past the row
+  const int n_lead = lead ? n : 0;
+  const size_t stride = a.B;
+  const int8_t* text = a.text_t + row;
+  int j = 0;
+  auto code_row = [&]() -> uint32_t {
+    uint32_t r = 4u * kRow;
+    if (j < n_lead) r = min(static_cast<uint32_t>(static_cast<uint8_t>(*text)), 4u) * kRow;
+    ++j;
+    text += stride;
+    return r;
+  };
+
+  uint32_t vp[WPL], vn[WPL], eq_a[WPL], eq_b[WPL];
 #pragma unroll
   for (int i = 0; i < WPL; ++i) {
-    const int w = lane * WPL + i;
-    const bool ok = w < W;
-    p0[i] = ok ? static_cast<uint32_t>(peq[0 * W + w]) : 0u;
-    p1[i] = ok ? static_cast<uint32_t>(peq[1 * W + w]) : 0u;
-    p2[i] = ok ? static_cast<uint32_t>(peq[2 * W + w]) : 0u;
-    p3[i] = ok ? static_cast<uint32_t>(peq[3 * W + w]) : 0u;
     vp[i] = kFull;
     vn[i] = 0u;
+    eq_a[i] = 0u;                               // step 0 is idle everywhere
   }
-  const int tap_word = (m - 1) >> 5;
-  const int tap_bit = (m - 1) & 31;
-  const int tap_lane = tap_word / WPL;
-  const int tap_i = tap_word % WPL;
+  // packet from the lane below: hp top at bit 31, hn top at bit 30, the Eq
+  // row offset of this lane's next column, carry at bit 0; lane 0's holds
+  // column 0's row and nothing else
+  uint32_t in = code_row();                     // lanes but 0: N
+  int score = a.m, best = a.m, best_s = 0;
 
-  const int n = max(0, min(lens[row], L));
-  int score = m, best = m, bestj = -1;
-
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int jl = j0 + lane;
-    const int ch = jl < n ? static_cast<int>(text_t[static_cast<size_t>(jl) * B + row]) : 4;
-    const int cnt = min(32, n - j0);
-    for (int t = 0; t < cnt; ++t) {
-      const int c = __shfl_sync(kFull, ch, t);
-      uint32_t eq[WPL], s[WPL];
-      uint32_t carry = 0u;
-      bool all_ones = true;
+  // step s: this lane's column s-1-gl with Eq `eq`, and the load of its
+  // next column's Eq into `eq_next`; lane 0 then takes `lead_row`
+  auto step = [&](const uint32_t (&eq)[WPL], uint32_t (&eq_next)[WPL],
+                  uint32_t lead_row, int s) {
+    const uint32_t next_row = in & kRowBits;
+    const char* src = table_bytes + tab + next_row;
 #pragma unroll
-      for (int i = 0; i < WPL; ++i) {
-        eq[i] = c == 0 ? p0[i] : c == 1 ? p1[i] : c == 2 ? p2[i]
-              : c == 3 ? p3[i] : 0u;
-        const uint64_t sum = static_cast<uint64_t>(eq[i] & vp[i]) + vp[i] + carry;
-        s[i] = static_cast<uint32_t>(sum);
-        carry = static_cast<uint32_t>(sum >> 32);
-        all_ones = all_ones && s[i] == kFull;
-      }
-      // lanes as the digits of one 32-digit number: generate = carry out
-      // with carry-in 0, propagate = all words ones (carry out iff carry in)
-      const unsigned gen = __ballot_sync(kFull, carry != 0u);
-      const unsigned prop = __ballot_sync(kFull, all_ones);
-      const unsigned a = gen | prop;
-      uint32_t cin = (((a + gen) ^ a ^ gen) >> lane) & 1u;
+    for (int i = 0; i < WPL; ++i)
+      eq_next[i] = reinterpret_cast<const uint32_t*>(src)[i];
+    uint32_t carry = in & 1u;
+    uint32_t hp_lo = in, hn_lo = in << 1;       // bit 31: the tops from below
+    uint32_t hp = 0u, hn = 0u;
 #pragma unroll
-      for (int i = 0; i < WPL; ++i) {
-        const uint32_t v = s[i] + cin;
-        cin = cin & (s[i] == kFull ? 1u : 0u);
-        s[i] = v;
-      }
-      uint32_t d0[WPL], hp[WPL], hn[WPL];
-      int tp = 0, tn = 0;
-#pragma unroll
-      for (int i = 0; i < WPL; ++i) {
-        d0[i] = (s[i] ^ vp[i]) | eq[i] | vn[i];
-        hp[i] = vn[i] | ~(d0[i] | vp[i]);
-        hn[i] = vp[i] & d0[i];
-        if (i == tap_i) {
-          tp = (hp[i] >> tap_bit) & 1u;
-          tn = (hn[i] >> tap_bit) & 1u;
-        }
-      }
-      const int inc = __shfl_sync(kFull, tp - tn, tap_lane);
-      uint32_t hp_in = __shfl_up_sync(kFull, hp[WPL - 1] >> 31, 1);
-      uint32_t hn_in = __shfl_up_sync(kFull, hn[WPL - 1] >> 31, 1);
-      if (lane == 0) {                  // HW: nothing enters row 0
-        hp_in = 0u;
-        hn_in = 0u;
-      }
-#pragma unroll
-      for (int i = 0; i < WPL; ++i) {
-        const uint32_t hps = (hp[i] << 1) | (i ? hp[i - 1] >> 31 : hp_in);
-        const uint32_t hns = (hn[i] << 1) | (i ? hn[i - 1] >> 31 : hn_in);
-        vp[i] = hns | ~(d0[i] | hps);
-        vn[i] = hps & d0[i];
-      }
-      score += inc;
-      if (score < best) {
-        best = score;
-        bestj = j0 + t;
-      }
+    for (int i = 0; i < WPL; ++i) {
+      const uint64_t sum =
+          static_cast<uint64_t>(eq[i] & vp[i]) + vp[i] + carry;
+      carry = static_cast<uint32_t>(sum >> 32);
+      const uint32_t d0 = (static_cast<uint32_t>(sum) ^ vp[i]) | eq[i] | vn[i];
+      hp = vn[i] | ~(d0 | vp[i]);
+      hn = vp[i] & d0;
+      const uint32_t hps = __funnelshift_l(hp_lo, hp, 1);
+      const uint32_t hns = __funnelshift_l(hn_lo, hn, 1);
+      hp_lo = hp;
+      hn_lo = hn;
+      vp[i] = hns | ~(d0 | hps);
+      vn[i] = hps & d0;
     }
+    // bit 31 of the top slot's hp and hn: the lane's top row, row m-1 in
+    // the tap lane
+    const uint32_t out =
+        (hp & 0x80000000u) | ((hn >> 1) & 0x40000000u) | next_row | carry;
+    in = __shfl_up_sync(kFull, out, 1, G);
+    if (lead) in = lead_row;                    // HW: nothing enters row 0
+    score += static_cast<int>(hp >> 31) - static_cast<int>(hn >> 31);
+    if (score < best) {
+      best = score;
+      best_s = s;
+    }
+  };
+
+  uint32_t ahead[kUnroll];                      // lane 0: rows of columns s+1..
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) ahead[u] = code_row();
+  const int steps = n_warp > 0 ? n_warp + tap_lane + 1 : 0;
+  for (int s0 = 0; s0 < steps; s0 += kUnroll) {
+    uint32_t later[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) later[u] = code_row();
+#pragma unroll
+    for (int u = 0; u < kUnroll; u += 2) {     // Eq buffers swap, not copied
+      step(eq_a, eq_b, ahead[u], s0 + u);
+      step(eq_b, eq_a, ahead[u + 1], s0 + u + 1);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) ahead[u] = later[u];
   }
-  if (lane == 0) {
-    int32_t* dist = strand ? dist_r : dist_f;
-    int32_t* end = strand ? end_r : end_f;
-    dist[row] = best;
-    end[row] = bestj;
+  if (gl == tap_lane && row < a.B) {
+    (strand ? a.dist_r : a.dist_f)[row] = best;
+    (strand ? a.end_r : a.end_f)[row] = best < a.m ? best_s - 1 - tap_lane : -1;
   }
 }
 
-template <int WPL, int STRANDS>
-void launch(const int32_t* peq_f, const int32_t* peq_r, const int8_t* text_t,
-            const int32_t* lens, int32_t* dist_f, int32_t* end_f,
-            int32_t* dist_r, int32_t* end_r, int m, int W, int L, int B,
-            cudaStream_t stream) {
-  constexpr int rows_per_block = kWarpsPerBlock / STRANDS;
-  const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  myers_hw_kernel<WPL, STRANDS><<<blocks, kThreads, 0, stream>>>(
-      peq_f, peq_r, text_t, lens, dist_f, end_f, dist_r, end_r, m, W, L, B);
+template <int G, int STRANDS, int WPL = 1>
+void launch(int wpl, const Args& a, cudaStream_t stream) {
+  if constexpr (WPL < kMaxWords / G) {
+    if (wpl > WPL) return launch<G, STRANDS, WPL + 1>(wpl, a, stream);
+  }
+  const int blocks = (a.B * STRANDS * G + kThreads - 1) / kThreads;
+  myers_hw_wavefront<G, WPL, STRANDS><<<blocks, kThreads, 0, stream>>>(a);
 }
 
-// Checks the sizes and picks the words-per-lane instance. The strand-r
-// pointers are unused (null) with one strand.
+// Checks the sizes and picks the (group, words-per-lane) instance. The
+// strand-r pointers are unused (null) with one strand.
 template <int STRANDS>
-int dispatch(const void* peq_f, const void* peq_r, const void* text_t,
-             const void* lens, void* dist_f, void* end_f, void* dist_r,
-             void* end_r, int m, int W, int L, int B, void* stream) {
-  if (m < 1 || W != (m + 31) / 32 || W > 4 * 32 || L < 0 || B < 0)
+int dispatch(const Args& a, int group, void* stream) {
+  if (a.m < 1 || a.W != (a.m + 31) / 32 || a.W > kMaxWords || a.L < 0 ||
+      a.B < 0 || (group != 8 && group != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  const int wpl = (W + 31) / 32;
-  auto pf = static_cast<const int32_t*>(peq_f);
-  auto pr = static_cast<const int32_t*>(peq_r);
-  auto tx = static_cast<const int8_t*>(text_t);
-  auto ln = static_cast<const int32_t*>(lens);
-  auto df = static_cast<int32_t*>(dist_f);
-  auto ef = static_cast<int32_t*>(end_f);
-  auto dr = static_cast<int32_t*>(dist_r);
-  auto er = static_cast<int32_t*>(end_r);
+  if (a.B == 0) return 0;
+  const int wpl = (a.W + group - 1) / group;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (wpl) {
-    case 1: launch<1, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
-    case 2: launch<2, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
-    case 3: launch<3, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
-    default: launch<4, STRANDS>(pf, pr, tx, ln, df, ef, dr, er, m, W, L, B, st); break;
+  switch (group) {
+    case 8: launch<8, STRANDS>(wpl, a, st); break;
+    default: launch<32, STRANDS>(wpl, a, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -195,21 +232,33 @@ int dispatch(const void* peq_f, const void* peq_r, const void* text_t,
 }  // namespace
 
 // peq_f, peq_r: (5, W) 32-bit words; text_t: (L, B) int8 codes; lens: (B,);
-// outputs (B,) int32. Launches on `stream`, allocates nothing, does not
-// synchronise. Returns cudaGetLastError() (0 on success).
+// outputs (B,) int32; group: lanes per (row, strand), 8 or 32.
+// Launches on `stream`, allocates nothing, does not synchronise. Returns
+// cudaGetLastError() (0 on success).
 extern "C" int cf_myers_hw_2strand(const void* peq_f, const void* peq_r,
                                    const void* text_t, const void* lens,
                                    void* dist_f, void* end_f, void* dist_r,
                                    void* end_r, int m, int W, int L, int B,
-                                   void* stream) {
-  return dispatch<2>(peq_f, peq_r, text_t, lens, dist_f, end_f, dist_r,
-                     end_r, m, W, L, B, stream);
+                                   int group, void* stream) {
+  const Args a{static_cast<const int32_t*>(peq_f),
+               static_cast<const int32_t*>(peq_r),
+               static_cast<const int8_t*>(text_t),
+               static_cast<const int32_t*>(lens),
+               static_cast<int32_t*>(dist_f), static_cast<int32_t*>(end_f),
+               static_cast<int32_t*>(dist_r), static_cast<int32_t*>(end_r),
+               m, W, L, B};
+  return dispatch<2>(a, group, stream);
 }
 
 // One strand: peq (5, W) words; dist, end (B,) int32. Same contract.
 extern "C" int cf_myers_hw_1strand(const void* peq, const void* text_t,
                                    const void* lens, void* dist, void* end,
-                                   int m, int W, int L, int B, void* stream) {
-  return dispatch<1>(peq, nullptr, text_t, lens, dist, end, nullptr, nullptr,
-                     m, W, L, B, stream);
+                                   int m, int W, int L, int B, int group,
+                                   void* stream) {
+  const Args a{static_cast<const int32_t*>(peq), nullptr,
+               static_cast<const int8_t*>(text_t),
+               static_cast<const int32_t*>(lens),
+               static_cast<int32_t*>(dist), static_cast<int32_t*>(end),
+               nullptr, nullptr, m, W, L, B};
+  return dispatch<1>(a, group, stream);
 }

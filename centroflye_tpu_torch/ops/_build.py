@@ -31,8 +31,8 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     "cf_myers_hw_2strand": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P],
-    "cf_myers_hw_1strand": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _P],
+    "cf_myers_hw_1strand": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cf_myers_hw_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

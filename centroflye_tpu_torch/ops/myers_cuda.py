@@ -8,7 +8,10 @@
 | `myers_hw_v3_banded` | `csrc/myers_hw_banded.cu` | `myers_hw_pallas_v3_banded` |
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
-in its `launches` attribute. For CPU tensors it runs its plain PyTorch
+in its `launches` attribute. The two-strand and one-strand wrappers run
+one kernel template in instances of G = 8 or 32 lanes per
+(row, strand): `pick_group` chooses G from the batch, and the keyword
+`group` forces one. For CPU tensors it runs its plain PyTorch
 version (`*_plain`, built on `ops/myers.myers_distance_batch`), which is
 also what the kernel is compared with on the card. Nothing falls back: on
 a CUDA tensor a wrapper launches its kernel or raises.
@@ -21,7 +24,31 @@ import torch
 from centroflye_tpu_torch.ops._build import load_library
 from centroflye_tpu_torch.ops.myers import MASK, myers_distance_batch, n_words
 
-MAX_WORDS = 4 * 32      # the kernels' widest instance: 4 words per lane
+MAX_WORDS = 4 * 32      # m <= 4096
+GROUPS = (8, 32)        # lanes per (row, strand) of myers_hw_2strand.cu
+SMALL_BATCH = 512       # (row, strand) problems at or below which G = 32
+
+
+def pick_group(B: int, strands: int) -> int:
+    """Lanes per (row, strand) for a batch of B rows. Up to SMALL_BATCH
+    problems, G = 32 gives each problem a warp and each warp its own
+    scheduler (the H100 has 528), and the time is one warp's chain of
+    dependent steps, which 32 lanes make the shortest. Above it the warps
+    share schedulers and integer issue sets the time: G = 8 has the fewest
+    idle word slots and the least fixed work per word. Measured at 128 and
+    2048 rows on DXZ1 only (W = 65 words, PERF.md): a short query with few
+    words leaves most of a 32-lane group idle, so a caller at another m
+    should measure before relying on the rule."""
+    return 32 if B * strands <= SMALL_BATCH else 8
+
+
+def _group(group, B: int, strands: int) -> int:
+    """The instance for B rows: `group` if given (checked), else the pick."""
+    if group is None:
+        return pick_group(B, strands)
+    if group not in GROUPS:
+        raise ValueError(f"group={group}: one of {GROUPS} or None")
+    return group
 
 
 def myers_hw_v3_plain(peq, text_t, lens, *, m: int):
@@ -97,20 +124,23 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int):
+def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int, group=None):
     """HW edit distance of the unit (peq_f) and of its reverse complement
     (peq_r) against each text column of text_t, plus the first column
     that reaches each minimum.
 
     peq_f, peq_r: (5, W) int64 tensors of 32-bit words (ops/myers.words_tensor);
     text_t: (L, B) int8 codes, 0-3 bases, >= 4 N/PAD; lens: (B,) or (B, 1)
-    int32. Columns at or past lens do not move the score. Returns
-    {"dist_f", "end_f", "dist_r", "end_r"}, each (B,) int32.
+    int32. Columns at or past lens do not move the score. `group` forces
+    the kernel's lanes per (row, strand), 8 or 32 (None: `pick_group`).
+    Returns {"dist_f", "end_f", "dist_r", "end_r"}, each (B,) int32.
     """
     if text_t.device.type == "cpu":
+        _group(group, text_t.shape[1], 2)
         return myers_hw_2strand_plain(peq_f, peq_r, text_t, lens, m=m)
     W, L, B, (pf, pr) = _check_launch({"peq_f": peq_f, "peq_r": peq_r},
                                       text_t, lens, m)
+    G = _group(group, B, 2)
     dev = text_t.device
     lib = load_library()
     out = torch.empty((4, B), dtype=torch.int32, device=dev)
@@ -119,7 +149,7 @@ def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int):
         rc = lib.cf_myers_hw_2strand(
             pf.data_ptr(), pr.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), m, W, L, B, stream)
+            out[3].data_ptr(), m, W, L, B, G, stream)
     _raise_on(rc, "cf_myers_hw_2strand")
     myers_hw_2strand.launches += 1
     return {"dist_f": out[0], "end_f": out[1],
@@ -129,13 +159,15 @@ def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int):
 myers_hw_2strand.launches = 0
 
 
-def myers_hw_v3(peq, text_t, lens, *, m: int):
+def myers_hw_v3(peq, text_t, lens, *, m: int, group=None):
     """One-strand form of `myers_hw_2strand`: peq (5, W) int64 words,
     text_t (L, B) int8, lens (B,) or (B, 1) int32 -> {"dist", "end"},
-    each (B,) int32."""
+    each (B,) int32. `group` as in `myers_hw_2strand`."""
     if text_t.device.type == "cpu":
+        _group(group, text_t.shape[1], 1)
         return myers_hw_v3_plain(peq, text_t, lens, m=m)
     W, L, B, (pq,) = _check_launch({"peq": peq}, text_t, lens, m)
+    G = _group(group, B, 1)
     dev = text_t.device
     lib = load_library()
     out = torch.empty((2, B), dtype=torch.int32, device=dev)
@@ -143,7 +175,7 @@ def myers_hw_v3(peq, text_t, lens, *, m: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.cf_myers_hw_1strand(
             pq.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), m, W, L, B, stream)
+            out[0].data_ptr(), out[1].data_ptr(), m, W, L, B, G, stream)
     _raise_on(rc, "cf_myers_hw_1strand")
     myers_hw_v3.launches += 1
     return {"dist": out[0], "end": out[1]}

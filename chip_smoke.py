@@ -4,7 +4,14 @@ plain PyTorch version at the main path's shapes (K1 two-strand, K2
 one-strand and K3 threshold-k banded HW Myers), then drives read
 recruitment (stage 1 of cenX) on the real DXZ1 unit and a rel2-matched
 read mix, its file CLI, and the Myers op library's HW entry points (K2,
-K3) on the exact tier's batches of that mix.
+K3) on the exact tier's batches of that mix. K1 and K2 are one wavefront
+kernel in instances of G = 8 and 32 lanes per (row, strand): every
+instance is held against the plain version and timed at 128 x 10240
+(phases k1, k2) and at 2048 x 10240 (phase myers_ops, where the
+wrapper's instance is held against the plain version on exact-tier
+batch 0), beside the instance the wrapper picks. Each kernel is listed with its bound: the
+larger of its operations over the card's INT32 rate at the maximum SM
+clock and its bytes over the memory rate.
 
     python3 chip_smoke.py
 
@@ -28,8 +35,8 @@ from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
 from centroflye_tpu_torch.ops import _build
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
-    myers_hw_2strand, myers_hw_2strand_plain, myers_hw_v3,
-    myers_hw_v3_banded, myers_hw_v3_plain, threshold_hw)
+    GROUPS, myers_hw_2strand, myers_hw_2strand_plain, myers_hw_v3,
+    myers_hw_v3_banded, myers_hw_v3_plain, pick_group, threshold_hw)
 from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
                                                     gen_random_seq)
 from centroflye_tpu_torch.stages.recruitment import (RecruitmentEngine,
@@ -50,6 +57,12 @@ K1_REPLACES = f"{PALLAS}:575"
 K2_REPLACES = f"{PALLAS}:188"
 K3_REPLACES = f"{PALLAS}:451"
 CSRC = "centroflye_tpu_torch/csrc"
+# bound: 32-bit integer operations per query word per text column (the
+# add with its carry 2, d0 2, hp and hn 2, the two shifts 2, vp and vn 2,
+# the Eq fetch 1), INT32 lanes per SM per clock, HBM bytes per second
+OPS_PER_WORD_COLUMN = 11
+INT32_LANES_PER_SM_CLOCK = 64
+HBM_BYTES_PER_S = 3.35e12
 
 
 def emit(obj):
@@ -172,6 +185,30 @@ def k3_case(rng, unit_codes, L, B, dev):
             torch.from_numpy(lens).to(dev))
 
 
+def int32_ops_per_s():
+    """The card's INT32 rate at its maximum SM clock (nvidia-smi)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    mhz = float(smi.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM_CLOCK * mhz * 1e6
+
+
+def myers_bound(lens, words, strands, rate):
+    """(bound_ms, bound_by) of HW Myers over a batch: `words` query words
+    per column of each row's lens columns, per strand, against the bytes
+    (one code per column, the lens, the peq tables, two int32 outputs per
+    row and strand)."""
+    n = int(lens.sum())
+    ops = OPS_PER_WORD_COLUMN * words * n * strands
+    nbytes = n + 4 * lens.numel() + strands * (5 * 4 * words
+                                               + 8 * lens.numel())
+    op_ms, byte_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
 def max_abs_err(a, b):
     return max(int((a[k].cpu().long() - b[k].cpu().long()).abs().max())
                for k in a)
@@ -213,10 +250,10 @@ def phase_build():
           "ptxas": regs, "seconds": time.perf_counter() - t0})
 
 
-def phase_k1(unit_codes, dev):
+def phase_k1(unit_codes, dev, rate):
     """K1 against its plain version on the card at the fused step's shape
-    (k_budget rows of one segment), then a small case also against the
-    plain version on the CPU."""
+    (k_budget rows of one segment), the wrapper's instance and every G,
+    then a small case also against the plain version on the CPU."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     m = len(unit_codes)
@@ -233,63 +270,98 @@ def phase_k1(unit_codes, dev):
     want = {"dist_f": want_f["dist"], "end_f": want_f["end"],
             "dist_r": want_r["dist"], "end_r": want_r["end"]}
     err = max_abs_err(got, want)
-    check(err == 0, f"K1 != plain at {K_BUDGET}x{SEG_LEN}, m={m}")
     check(int(got["dist_f"][0]) == 0 and int(got["dist_r"][1]) == 0,
           "tandem rows must align exactly")
     check((int(got["dist_f"][6]), int(got["end_f"][6])) == (m, -1),
           "a row of length 0 gives (m, -1)")
     k1_ms = time_cuda(lambda: myers_hw_2strand(*args, m=m), reps=20)
+    by_group = {}
+    for G in GROUPS:
+        err = max(err, max_abs_err(myers_hw_2strand(*args, m=m, group=G),
+                                   want))
+        by_group[G] = time_cuda(
+            lambda: myers_hw_2strand(*args, m=m, group=G), reps=20)
+    check(err == 0, f"K1 != plain at {K_BUDGET}x{SEG_LEN}, m={m}")
 
     small_m = 90
     small = k1_case(rng, rng.integers(0, 4, small_m).astype(np.int8),
                     small_m, 256, 128, dev)
-    got_s = myers_hw_2strand(*small, m=small_m)
     want_s = myers_hw_2strand_plain(*small, m=small_m)
     cpu_s = myers_hw_2strand(*(a.cpu() for a in small), m=small_m)
-    err_s = max(max_abs_err(got_s, want_s), max_abs_err(got_s, cpu_s))
+    err_s = max_abs_err(want_s, cpu_s)
+    for G in (None, *GROUPS):
+        err_s = max(err_s, max_abs_err(
+            myers_hw_2strand(*small, m=small_m, group=G), want_s))
     check(err_s == 0, "K1 != plain at m=90 (card or CPU)")
+    bound_ms, bound_by = myers_bound(lens, pf.shape[1], 2, rate)
+    group = pick_group(K_BUDGET, 2)
     emit({"phase": "k1", "shape": [K_BUDGET, SEG_LEN], "m": m,
-          "max_abs_err": err, "k1_ms": k1_ms, "plain_ms": plain_ms,
-          "small_m90_max_abs_err": err_s,
+          "max_abs_err": err, "k1_ms": k1_ms, "group": group,
+          "ms_by_group": by_group, "bound_ms": bound_ms,
+          "plain_ms": plain_ms, "small_m90_max_abs_err": err_s,
           "seconds": time.perf_counter() - t0})
     kernel = {"max_abs_err": max(err, err_s), "ms": k1_ms,
-              "plain_ms": plain_ms}
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None,
+              "instances": {f"{K_BUDGET}x{SEG_LEN}": {
+                  "group": group, "ms": k1_ms, "bound_ms": bound_ms,
+                  "ms_by_group": by_group}}}
     return kernel, {"args": args, "want": want, "plain_f_ms": plain_f_ms,
                     "small": small, "small_m": small_m}
 
 
-def phase_k2(k1, k1_ms, m):
-    """K2 with peq_f, then peq_r, on phase k1's batch: each equals the
-    matching strand of the plain result phase k1 computed. Then m = 90
-    against the plain version on the CPU."""
+def phase_k2(k1, k1_ms, m, rate):
+    """K2 with peq_f, then peq_r, on phase k1's batch, the wrapper's
+    instance and every G: each equals the matching strand of the plain
+    result phase k1 computed. Then m = 90 against the plain version on
+    the CPU."""
     t0 = time.perf_counter()
     pf, pr, text_t, lens = k1["args"]
     want = k1["want"]
     err = 0
-    for s, peq in (("f", pf), ("r", pr)):
-        got = myers_hw_v3(peq, text_t, lens, m=m)
-        err = max(err, max_abs_err(
-            got, {"dist": want[f"dist_{s}"], "end": want[f"end_{s}"]}))
+    for G in (None, *GROUPS):
+        for s, peq in (("f", pf), ("r", pr)):
+            got = myers_hw_v3(peq, text_t, lens, m=m, group=G)
+            err = max(err, max_abs_err(
+                got, {"dist": want[f"dist_{s}"], "end": want[f"end_{s}"]}))
     check(err == 0, f"K2 != plain at {K_BUDGET}x{SEG_LEN}, m={m}")
     k2_ms = time_cuda(lambda: myers_hw_v3(pf, text_t, lens, m=m), reps=20)
+    by_group = {G: time_cuda(lambda: myers_hw_v3(pf, text_t, lens, m=m,
+                                                 group=G), reps=20)
+                for G in GROUPS}
 
     small_m = k1["small_m"]
     spf, spr, stext, slens = k1["small"]
     err_s = 0
     for peq in (spf, spr):
-        got = myers_hw_v3(peq, stext, slens, m=small_m)
         cpu = myers_hw_v3(peq.cpu(), stext.cpu(), slens.cpu(), m=small_m)
-        err_s = max(err_s, max_abs_err(got, cpu))
+        for G in (None, *GROUPS):
+            got = myers_hw_v3(peq, stext, slens, m=small_m, group=G)
+            err_s = max(err_s, max_abs_err(got, cpu))
     check(err_s == 0, "K2 != CPU plain at m=90")
+    bound_ms, bound_by = myers_bound(lens, pf.shape[1], 1, rate)
+    group = pick_group(K_BUDGET, 1)
     emit({"phase": "k2", "shape": [K_BUDGET, SEG_LEN], "m": m,
-          "max_abs_err": err, "k2_ms": k2_ms, "k1_ms": k1_ms,
+          "max_abs_err": err, "k2_ms": k2_ms, "group": group,
+          "ms_by_group": by_group, "bound_ms": bound_ms, "k1_ms": k1_ms,
           "plain_ms": k1["plain_f_ms"], "small_m90_max_abs_err": err_s,
           "seconds": time.perf_counter() - t0})
     return {"max_abs_err": max(err, err_s), "ms": k2_ms,
-            "plain_ms": k1["plain_f_ms"]}
+            "plain_ms": k1["plain_f_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "instances": {f"{K_BUDGET}x{SEG_LEN}": {
+                "group": group, "ms": k2_ms, "bound_ms": bound_ms,
+                "ms_by_group": by_group}}}
 
 
-def phase_k3(unit_codes, dev, k1_ms, k2_ms):
+def k3_bound(lens, k, rate):
+    """K3's bound: the query rows that every column's band must hold,
+    the first k + 1 (a cell of row i <= k has a score <= k), as words;
+    the rows a band holds beyond them near a match are not counted."""
+    return myers_bound(lens, -(-(k + 1) // 32), 1, rate)
+
+
+def phase_k3(unit_codes, dev, k1_ms, k2_ms, rate):
     """K3 at k = THRESHOLD against its plain version on its own
     128 x 10240 DXZ1 batch (one plain run per strand), then small cases
     at m = 90 (one band block), 300 and 1500 (two blocks), k in {0, 20,
@@ -327,14 +399,17 @@ def phase_k3(unit_codes, dev, k1_ms, k2_ms):
                 err_s = max(err_s, max_abs_err(
                     got, threshold_hw(unbanded, m=small_m, k=k)))
     check(err_s == 0, "K3 != CPU plain at m = 90, 300 or 1500")
+    bound_ms, bound_by = k3_bound(lens, THRESHOLD, rate)
     emit({"phase": "k3", "shape": [K_BUDGET, SEG_LEN], "m": m,
           "k": THRESHOLD, "max_abs_err": err, "rows_in_band": in_band,
-          "k3_ms": k3_ms, "k2_ms_same_batch": k2_here,
+          "k3_ms": k3_ms, "bound_ms": bound_ms,
+          "k2_ms_same_batch": k2_here,
           "k1_ms_same_batch": k1_here, "k2_ms_k1_batch": k2_ms,
           "k1_ms_k1_batch": k1_ms, "plain_ms": plain_ms,
           "small_max_abs_err": err_s, "seconds": time.perf_counter() - t0})
     return {"max_abs_err": max(err, err_s), "ms": k3_ms,
-            "plain_ms": plain_ms[0]}
+            "plain_ms": plain_ms[0], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase_main_path(unit, dev):
@@ -390,11 +465,15 @@ def phase_main_path(unit, dev):
     return reads, recruited, launches, batches, exact.overlap
 
 
-def phase_myers_ops(unit, reads, recruited, batches, overlap, dev):
+def phase_myers_ops(unit, reads, recruited, batches, overlap, dev, rate):
     """The Myers op library's HW entry points on the exact tier's
     batches of the main path's mix (BATCH_SIZE x SEG_LEN, both strands):
     K2 equals K1's strand, K3 at k = THRESHOLD equals K1's strand
-    thresholded, and the reads K3 would recruit are the engine's."""
+    thresholded, and the reads K3 would recruit are the engine's. Then,
+    with the counts read, the wrapper's K1 and K2 on batch 0 equal the
+    plain version (one plain call per strand), every G instance of K1
+    and K2 on every batch equals K1's strands, and each is timed on
+    batch 0."""
     t0 = time.perf_counter()
     m = len(unit)
     uc = encode(unit)
@@ -442,23 +521,74 @@ def phase_myers_ops(unit, reads, recruited, batches, overlap, dev):
     check(k3_set == recruited,
           f"K3's recruited set != the engine's: {sorted(k3_set ^ recruited)[:10]}")
 
-    codes, lens = batches[0]
-    text_t = torch.from_numpy(codes).to(dev).t().contiguous()
-    lens_t = torch.from_numpy(lens).to(dev)
-    ms = {"k1_ms": time_cuda(lambda: myers_hw_2strand(pf, pr, text_t, lens_t,
+    text0 = torch.from_numpy(batches[0][0]).to(dev).t().contiguous()
+    lens0 = torch.from_numpy(batches[0][1]).to(dev)
+    k1 = myers_hw_2strand(pf, pr, text0, lens0, m=m)
+    plain_ms, plain_err, plain_in_band = {}, 0, 0
+    for s, peq in (("f", pf), ("r", pr)):
+        want, plain_ms[s] = timed_plain(
+            lambda: myers_hw_v3_plain(peq, text0, lens0, m=m))
+        plain_err = max(
+            plain_err,
+            max_abs_err({"dist": k1[f"dist_{s}"], "end": k1[f"end_{s}"]},
+                        want),
+            max_abs_err(myers_hw_v3(peq, text0, lens0, m=m), want))
+        plain_in_band += int((want["dist"] <= THRESHOLD).sum())
+    check(plain_err == 0, "K1 or K2 != plain on exact-tier batch 0")
+    check(plain_in_band > 0, "exact-tier batch 0 holds no row within k")
+
+    err = 0
+    for codes, lens in batches:
+        text_t = torch.from_numpy(codes).to(dev).t().contiguous()
+        lens_t = torch.from_numpy(lens).to(dev)
+        k1 = myers_hw_2strand(pf, pr, text_t, lens_t, m=m)
+        for G in GROUPS:
+            err = max(err, max_abs_err(
+                myers_hw_2strand(pf, pr, text_t, lens_t, m=m, group=G), k1))
+            for s, peq in (("f", pf), ("r", pr)):
+                err = max(err, max_abs_err(
+                    myers_hw_v3(peq, text_t, lens_t, m=m, group=G),
+                    {"dist": k1[f"dist_{s}"], "end": k1[f"end_{s}"]}))
+    check(err == 0, "a G instance of K1 or K2 != K1 on an exact-tier batch")
+
+    ms = {"k1_ms": time_cuda(lambda: myers_hw_2strand(pf, pr, text0, lens0,
                                                       m=m), reps=5),
-          "k2_ms": time_cuda(lambda: myers_hw_v3(pf, text_t, lens_t, m=m),
+          "k2_ms": time_cuda(lambda: myers_hw_v3(pf, text0, lens0, m=m),
                              reps=5),
           "k3_ms": time_cuda(lambda: myers_hw_v3_banded(
-              pf, text_t, lens_t, m=m, k=THRESHOLD), reps=5)}
+              pf, text0, lens0, m=m, k=THRESHOLD), reps=5)}
+    by_group = {f"k{k}": {G: time_cuda(lambda: fn(G), reps=5)
+                          for G in GROUPS}
+                for k, fn in (
+                    (1, lambda G: myers_hw_2strand(pf, pr, text0, lens0,
+                                                   m=m, group=G)),
+                    (2, lambda G: myers_hw_v3(pf, text0, lens0, m=m,
+                                              group=G)))}
+    W = pf.shape[1]
+    bounds = {"k1": myers_bound(lens0, W, 2, rate)[0],
+              "k2": myers_bound(lens0, W, 1, rate)[0],
+              "k3": k3_bound(lens0, THRESHOLD, rate)[0]}
+    groups = {"k1": pick_group(BATCH_SIZE, 2), "k2": pick_group(BATCH_SIZE, 1)}
     emit({"phase": "myers_ops", "batches": len(batches),
           "segments": len(seg_read), "shape": [BATCH_SIZE, SEG_LEN],
           "k": THRESHOLD, "segments_in_band": in_band,
           "recruited": len(k3_set), "k3_set_equal": True,
+          "batch0_vs_plain_max_abs_err": plain_err,
+          "batch0_rows_in_band_vs_plain": plain_in_band,
+          "plain_ms_batch0": plain_ms, "instances_max_abs_err": err,
           "launches": launches, "run_seconds": run_s,
-          "ms_at_2048_rows_batch0": ms,
+          "ms_at_2048_rows_batch0": ms, "ms_by_group_batch0": by_group,
+          "bound_ms_batch0": bounds, "group": groups,
+          "batch0_sum_lens": int(lens0.sum()),
           "seconds": time.perf_counter() - t0})
-    return launches
+    shape = f"{BATCH_SIZE}x{SEG_LEN}"
+    plain = {"k1": plain_ms["f"] + plain_ms["r"], "k2": plain_ms["f"]}
+    instances = {k: {shape: {"group": groups[k], "ms": ms[f"{k}_ms"],
+                             "plain_ms": plain[k], "bound_ms": bounds[k],
+                             "ms_by_group": by_group[k]}}
+                 for k in ("k1", "k2")}
+    instances["k3"] = {shape: {"ms": ms["k3_ms"], "bound_ms": bounds["k3"]}}
+    return launches, instances
 
 
 def phase_cli(reads, recruited, dev):
@@ -485,16 +615,19 @@ def phase_cli(reads, recruited, dev):
 def main():
     smi_line, kind = phase_device()
     dev = torch.device("cuda")
+    rate = int32_ops_per_s()
     phase_build()
     unit = read_seq(UNIT_FASTA)
     m = len(unit)
-    k1, k1_state = phase_k1(encode(unit), dev)
-    k2 = phase_k2(k1_state, k1["ms"], m)
-    k3 = phase_k3(encode(unit), dev, k1["ms"], k2["ms"])
+    k1, k1_state = phase_k1(encode(unit), dev, rate)
+    k2 = phase_k2(k1_state, k1["ms"], m, rate)
+    k3 = phase_k3(encode(unit), dev, k1["ms"], k2["ms"], rate)
     reads, recruited, launches, batches, overlap = phase_main_path(unit, dev)
     phase_cli(reads, recruited, dev)
-    ops_launches = phase_myers_ops(unit, reads, recruited, batches, overlap,
-                                   dev)
+    ops_launches, at_2048 = phase_myers_ops(unit, reads, recruited, batches,
+                                            overlap, dev, rate)
+    for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
+        kernel.setdefault("instances", {}).update(at_2048[key])
     emit({"kernels": [
         {"name": "myers_hw_2strand", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K1_REPLACES,

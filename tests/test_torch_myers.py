@@ -232,18 +232,29 @@ def test_2strand_wrapper_on_cpu_is_the_plain_version():
     df, dr = recruit_distances(args[0], args[1], torch.from_numpy(codes),
                                args[3], m=m)
     assert torch.equal(df, want["dist_f"]) and torch.equal(dr, want["dist_r"])
+    for group in (8, 32):
+        forced = myers_hw_2strand(*args, m=m, group=group)
+        assert all(torch.equal(forced[k], want[k]) for k in want)
+    for group in (12, 16):
+        with pytest.raises(ValueError, match="group"):
+            myers_hw_2strand(*args, m=m, group=group)
+    assert myers_hw_2strand.launches == before
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("group", [None, 8, 32])
 @pytest.mark.parametrize("m,L,B", [(1, 64, 12), (33, 200, 130), (90, 256, 128),
-                                   (2055, 10240, 128), (3200, 3600, 10)])
-def test_2strand_kernel_matches_plain_on_gpu(cuda, m, L, B):
+                                   (2055, 10240, 128), (2055, 2600, 2048),
+                                   (3200, 3600, 10)])
+def test_2strand_kernel_matches_plain_on_gpu(cuda, m, L, B, group):
+    """Every instance (G lanes per row and strand; None: the wrapper's
+    pick, 8 at the exact tier's 2048 rows) equals the plain version."""
     pf, pr, codes, lens = _kernel_case(m, m, L, B)
     args = (words_tensor(pf, cuda), words_tensor(pr, cuda),
             torch.from_numpy(codes.T.copy()).to(cuda),
             torch.from_numpy(lens).to(cuda))
     before = myers_hw_2strand.launches
-    got = myers_hw_2strand(*args, m=m)
+    got = myers_hw_2strand(*args, m=m, group=group)
     torch.cuda.synchronize()
     assert myers_hw_2strand.launches == before + 1
     want = myers_hw_2strand_plain(*args, m=m)
@@ -268,3 +279,5 @@ def test_2strand_kernel_rejects_bad_inputs(cuda):
         myers_hw_2strand(pf_t, pr_t, text_t.t(), lens_t, m=40)
     with pytest.raises(ValueError):
         myers_hw_2strand(pf_t, pr_t, text_t, lens_t, m=4097)
+    with pytest.raises(ValueError, match="group"):
+        myers_hw_2strand(pf_t, pr_t, text_t, lens_t, m=40, group=4)

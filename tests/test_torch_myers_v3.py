@@ -110,6 +110,11 @@ def test_v3_wrappers_on_cpu_are_the_plain_versions():
               myers_hw_2strand.launches)
     one = myers_hw_v3(*args, m=m)
     _assert_equal(one, myers_hw_v3_plain(*args, m=m))
+    for group in (8, 32):
+        _assert_equal(myers_hw_v3(*args, m=m, group=group), one)
+    for group in (16, 64):
+        with pytest.raises(ValueError, match="group"):
+            myers_hw_v3(*args, m=m, group=group)
     for k in (0, 5, m):
         banded = myers_hw_v3_banded(*args, m=m, k=k)
         _assert_equal(banded, threshold_hw(one, m=m, k=k))
@@ -124,11 +129,14 @@ SHAPES = [(1, 64, 12), (33, 200, 130), (90, 256, 128), (2055, 10240, 128),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,L,B", SHAPES)
-def test_v3_kernel_matches_plain_on_gpu(cuda, m, L, B):
+@pytest.mark.parametrize("group", [None, 8, 32])
+@pytest.mark.parametrize("m,L,B", SHAPES + [(2055, 2600, 2048)])
+def test_v3_kernel_matches_plain_on_gpu(cuda, m, L, B, group):
+    """Every instance (G lanes per row; None: the wrapper's pick, 8 at
+    the exact tier's 2048 rows) equals the plain version."""
     args = _torch_args(*_case(m, m, L, B), device=cuda)
     before = myers_hw_v3.launches
-    got = myers_hw_v3(*args, m=m)
+    got = myers_hw_v3(*args, m=m, group=group)
     torch.cuda.synchronize()
     assert myers_hw_v3.launches == before + 1
     _assert_equal(got, myers_hw_v3_plain(*args, m=m))
@@ -169,5 +177,7 @@ def test_v3_kernels_reject_bad_inputs(cuda):
             call(peq[:, :1], text_t, lens, m=40)
         with pytest.raises(ValueError):
             call(peq, text_t, lens, m=4097)
+    with pytest.raises(ValueError, match="group"):
+        myers_hw_v3(peq, text_t, lens, m=40, group=4)
     with pytest.raises(ValueError):
         myers_hw_v3_banded(peq, text_t, lens, m=40, k=-1)
