@@ -10,5 +10,9 @@ Ported so far: stage 1 of cenX, read recruitment
 packing and lookup, seed filter, fused step), with a Hopper kernel for
 each of the JAX package's Pallas kernels: two-strand and one-strand HW
 Myers in `csrc/myers_hw_2strand.cu`, threshold-k banded HW Myers in
-`csrc/myers_hw_banded.cu`.
+`csrc/myers_hw_banded.cu`. Then stage 3, rare k-mers and the
+distance-graph unique k-mers (`pipeline/cenx.py::run_unique_kmers` over
+`stages/rare_kmers.py`, `stages/kmer_cloud.py` and
+`stages/distance_graph.py`), whose device work is plain PyTorch: the JAX
+package has no Pallas kernel there.
 """

@@ -96,3 +96,34 @@ def split_u64(codes_u64: np.ndarray):
     hi = (codes_u64 >> np.uint64(32)).astype(np.uint32)
     lo = (codes_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     return hi, lo
+
+
+def join_u64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) uint32 pair -> uint64 codes."""
+    return (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | \
+        np.asarray(lo, dtype=np.uint64)
+
+
+def kmer_strings(codes_u64: np.ndarray, k: int):
+    """uint64 k-mer codes -> list of strings (for artifact parity output)."""
+    codes_u64 = np.asarray(codes_u64, dtype=np.uint64)
+    n = len(codes_u64)
+    chars = np.empty((n, k), dtype=np.uint8)
+    for i in range(k):
+        shift = np.uint64(2 * (k - 1 - i))
+        chars[:, i] = _DEC[((codes_u64 >> shift) & np.uint64(3)).astype(np.int8)]
+    return [row.tobytes().decode("ascii") for row in chars]
+
+
+def string_to_kmer_code(kmer: str) -> int:
+    """Single k-mer string -> integer code (host). Rejects non-ACGT
+    characters: _ENC maps them to 4, which would overflow the 2-bit slot
+    and silently corrupt the code (e.g. on re-loading a hand-edited
+    unique_kmers artifact in the resume path)."""
+    code = 0
+    for ch in kmer:
+        v = int(_ENC[ord(ch)])
+        if v >= 4:
+            raise ValueError(f"non-ACGT character {ch!r} in k-mer {kmer!r}")
+        code = (code << 2) | v
+    return code

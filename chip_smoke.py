@@ -11,7 +11,15 @@ instance is held against the plain version and timed at 128 x 10240
 wrapper's instance is held against the plain version on exact-tier
 batch 0), beside the instance the wrapper picks. Each kernel is listed with its bound: the
 larger of its operations over the card's INT32 rate at the maximum SM
-clock and its bytes over the memory rate.
+clock and its bytes over the memory rate. Last, phase unique_kmers drives
+stage 3 of cenX (rare k-mers, then the distance-graph unique k-mers,
+through pipeline/cenx.run_unique_kmers; plain PyTorch on the card, no
+kernel of its own) on a simulated world of the production cenX shape:
+the card's output must equal the CPU's on a cut of that world, also
+through the sweep's raw, table and split paths at small capacities; on
+the cut and on the full world the card's edges must equal a numpy count
+of sampled true k-mer pairs; the full world prints its sizes, the strips
+of each sweep path, phase seconds and peak device memory.
 
     python3 chip_smoke.py
 
@@ -21,6 +29,7 @@ last line is {"ok": true, "device": {...}}.
 """
 
 import json
+import logging
 import os
 import subprocess
 import tempfile
@@ -29,16 +38,22 @@ import time
 import numpy as np
 import torch
 
-from centroflye_tpu_torch.config import RecruitmentConfig
-from centroflye_tpu_torch.io.encoding import decode, encode, revcomp
+from centroflye_tpu_torch.config import (COVERAGE, KmerRecruitmentConfig,
+                                         RecruitmentConfig)
+from centroflye_tpu_torch.io.encoding import (decode, encode, kmer_codes,
+                                              revcomp, string_to_kmer_code)
 from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
 from centroflye_tpu_torch.ops import _build
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
     GROUPS, myers_hw_2strand, myers_hw_2strand_plain, myers_hw_v3,
     myers_hw_v3_banded, myers_hw_v3_plain, pick_group, threshold_hw)
+from centroflye_tpu_torch.pipeline.cenx import run_unique_kmers
 from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
                                                     gen_random_seq)
+from centroflye_tpu_torch.stages.distance_graph import recruit_unique_kmers
+from centroflye_tpu_torch.stages.unit_decomposition import (DecompRecord,
+                                                            Decomposition)
 from centroflye_tpu_torch.stages.recruitment import (RecruitmentEngine,
                                                      recruit_file,
                                                      segment_starts)
@@ -63,6 +78,26 @@ CSRC = "centroflye_tpu_torch/csrc"
 OPS_PER_WORD_COLUMN = 11
 INT32_LANES_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12
+# stage 3's world: the shape of benchmarks/demo_cenx_production.py
+# (production_1500u_c50_n5.json): DXZ1 units, their divergence, uniform
+# read noise, read bases over the array; CUT_UNITS is the cut of the same
+# world that the CPU runs too
+WORLD_SEED = 7
+N_UNITS = 1500
+CUT_UNITS = 10
+TRUTH_PAIRS = 4000        # true pairs truth_sample counts again
+# the cut's clouds go through the sweep again at small capacities, on the
+# card and the CPU: several raw strips, then coalesced table strips;
+# table strips of many chunks (merge forests); strips sized past
+# max_capacity, which split
+CUT_SWEEPS = {"raw": dict(capacity=1 << 18),
+              "table": dict(capacity=1 << 20, entry_chunk=1 << 16),
+              "split": dict(capacity=1 << 18, dedup_hint=64,
+                            max_capacity=1 << 18)}
+DIV_RATE = 0.003
+READ_NOISE = 0.055
+READ_COVERAGE = 52
+MIN_RECORD_LEN = 5000     # UnitDecompositionConfig.min_record_len
 
 
 def emit(obj):
@@ -612,6 +647,253 @@ def phase_cli(reads, recruited, dev):
           "seconds": time.perf_counter() - t0})
 
 
+def rel2_length_mix(rng, n):
+    """The read lengths of benchmarks/demo_cenx_production.py: 25% around
+    75 kb, 75% around 11 kb, clipped to 3-200 kb."""
+    ul = rng.random(n) < 0.25
+    lens = np.where(ul, rng.lognormal(np.log(75_000), 0.35, n),
+                    rng.lognormal(np.log(11_000), 0.6, n))
+    return np.clip(lens, 3_000, 200_000).astype(np.int64)
+
+
+def make_world(unit, n_units, seed=WORLD_SEED):
+    """Stage 3's input, in bulk numpy: a tandem array of n_units copies
+    of `unit` with DIV_RATE substitutions, reads of the rel2 mix at
+    READ_COVERAGE x over it with uniform READ_NOISE (deletion, insertion
+    before the base, substitution: a third each), and the decomposition
+    records that stand in for stage 2: each read's whole units, strand
+    +, bounds at the simulated unit boundaries carried through the noise.
+    Returns (array codes, Decomposition, read count, read bases)."""
+    rng = np.random.default_rng(seed)
+    m = len(unit)
+    arr = np.tile(encode(unit), n_units)
+    n_mut = int(rng.binomial(arr.size, DIV_RATE))
+    pos = rng.choice(arr.size, n_mut, replace=False)
+    arr[pos] = (arr[pos] + rng.integers(1, 4, n_mut)) % 4
+    lens = rel2_length_mix(rng, int(READ_COVERAGE * arr.size / 3_000))
+    lens = np.minimum(lens, arr.size)
+    n_reads = int(np.searchsorted(np.cumsum(lens),
+                                  READ_COVERAGE * arr.size)) + 1
+    lens = lens[:n_reads]
+    starts = rng.integers(0, arr.size - lens + 1)
+    u0 = -(-starts // m)                       # first whole unit
+    nu = (starts + lens) // m - u0             # whole units in the read
+    keep = nu * m >= MIN_RECORD_LEN
+    u0, nu = u0[keep], nu[keep]
+    # the records' bases, concatenated, with the noise applied in bulk
+    src = np.concatenate([arr[a * m:(a + n) * m] for a, n in zip(u0, nu)])
+    r = rng.random(src.size)
+    third = READ_NOISE / 3
+    dele, ins = r < third, (r >= third) & (r < 2 * third)
+    sub = (r >= 2 * third) & (r < READ_NOISE)
+    src[sub] = (src[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    emit = np.where(dele, 0, np.where(ins, 2, 1))
+    cum = np.concatenate([[0], np.cumsum(emit)])
+    out = np.empty(int(cum[-1]), np.int8)
+    out[cum[:-1][~dele] + ins[~dele]] = src[~dele]
+    out[cum[:-1][ins]] = rng.integers(0, 4, int(ins.sum()))
+    records, g0 = {}, 0
+    for i, n in enumerate(nu):
+        b = cum[g0 + np.arange(n + 1) * m]
+        seq = decode(out[b[0]:b[-1]])
+        r_id = f"w{i:05d}"
+        records[r_id] = DecompRecord(r_id, len(seq), "+", 0, len(seq), seq,
+                                     (b - b[0]).astype(np.int32))
+        g0 += n * m
+    dec = Decomposition(records, {r: [(0, rec.r_len, "+")]
+                                  for r, rec in records.items()},
+                        {r: rec.r_len for r, rec in records.items()}, [])
+    return arr, dec, n_reads, int(lens.sum())
+
+
+class PhaseLog(logging.Handler):
+    """Sums the `seconds` and `counts` that the port's stage-3 modules
+    log with their phase records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.sums = {}
+
+    def emit(self, record):
+        for key in ("seconds", "counts"):
+            for k, v in getattr(record, key, {}).items():
+                self.sums[k] = self.sums.get(k, 0) + v
+
+
+def read_artifacts(outdir, c):
+    out = []
+    for name in (f"unique_kmers_min_edge_cov_{c}.txt",
+                 f"unique_edges_min_edge_cov_{c}.txt"):
+        with open(os.path.join(outdir, "recruited_unique_kmers", name),
+                  "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def truth_sample(arr, m, cfg, res, n_pairs=TRUTH_PAIRS):
+    """Stage 3's edges against an independent count on a sample of true
+    unit-to-unit k-mer pairs: (i, j) with both k-mers once in the
+    simulated array and rare, i in array unit u and j in unit u + 1. Per
+    pair, numpy counts from the clouds the sweep ran on how often j sits
+    d units after i in one record, for every d <= max_distance; the edge
+    (i, j, 1) must be in the result, with that count, exactly when the
+    rule keeps it (count >= min_coverage and count / all distances >=
+    rel_threshold). Also the share of unique k-mers once in the array."""
+    codes, valid = kmer_codes(arr, cfg.k)
+    u, first, cnt = np.unique(codes[valid], return_index=True,
+                              return_counts=True)
+    once, once_pos = u[cnt == 1], np.flatnonzero(valid)[first][cnt == 1]
+    in_rare = np.isin(once, res.rare)
+    tensor = res.clouds
+    check(tensor.shape[1] < 1000, "truth sample: a record of 1000 units")
+    # each rare k-mer's (record, unit instance) occurrences, as r * 1000 + t
+    r, t, _ = np.nonzero(tensor >= 0)
+    vals = tensor[tensor >= 0]
+    order = np.argsort(vals, kind="stable")
+    occ_keys = (r.astype(np.int64) * 1000 + t)[order]
+    bounds = np.searchsorted(vals[order], np.arange(len(res.rare) + 1))
+    by_unit = {}
+    for i, uu in zip(np.searchsorted(res.rare, once[in_rare]),
+                     once_pos[in_rare] // m):
+        by_unit.setdefault(int(uu), []).append(int(i))
+    cand = [(i, j) for uu in sorted(by_unit) if uu + 1 in by_unit
+            for i in by_unit[uu] for j in by_unit[uu + 1]]
+    pick = np.random.default_rng(0).choice(
+        len(cand), min(n_pairs, len(cand)), replace=False)
+    e = res.edges
+    got = {(i, j): f for i, j, d, f in zip(e.i.tolist(), e.j.tolist(),
+                                           e.dist.tolist(), e.freq.tolist())
+           if d == 1}
+    counts, want, bad = [], 0, []
+    for i, j in (cand[p] for p in pick):
+        a = occ_keys[bounds[i]:bounds[i + 1]]
+        b = occ_keys[bounds[j]:bounds[j + 1]]
+        diff = b[None, :] - a[:, None]
+        same = (b[None, :] // 1000) == (a[:, None] // 1000)
+        d = diff[same & (diff >= cfg.min_distance)
+                 & (diff <= cfg.max_distance)]
+        by_d = np.bincount(d, minlength=2)
+        c1, total = int(by_d[1]), int(by_d.sum())
+        counts.append(c1)
+        keep = c1 >= cfg.min_coverage and c1 >= cfg.rel_threshold * total
+        want += keep
+        if (got.get((i, j)) == c1) != keep or (not keep and (i, j) in got):
+            bad.append((i, j, c1, total, got.get((i, j))))
+    out = {"once_in_array": len(once), "once_and_rare": int(in_rare.sum()),
+           "pairs": len(pick), "edges_by_rule": want, "differ": len(bad),
+           "count_hist": np.bincount(np.minimum(counts, 12),
+                                     minlength=13).tolist(),
+           "examples": bad[:5],
+           "unique_once_in_array": float(np.isin(res.codes, once).mean())}
+    check(len(pick) > 0 and want > 0 and not bad,
+          f"truth sample: the edges differ from the count: {out}")
+    return out
+
+
+def phase_unique_kmers(unit, dev):
+    """Stage 3 (rare k-mers, then the distance-graph unique k-mers) through
+    `run_unique_kmers`. First the cut world on the card and on the CPU:
+    the rare codes, the unique codes and the edges (i, j, d, freq; the
+    edge file) must be identical. Then the full world on the card. Both
+    print their sizes and the strips each sweep path took, and both hold
+    the card's edges against `truth_sample`; the full world also prints
+    its phase seconds and peak device memory."""
+    t0 = time.perf_counter()
+    cfg = KmerRecruitmentConfig()
+    log = PhaseLog()
+    logger = logging.getLogger("centroflye_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(log)
+
+    def run(dec, d, outdir):
+        log.sums.clear()
+        t = time.perf_counter()
+        res = run_unique_kmers(dec, cfg, COVERAGE, outdir, device=d)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, dict(log.sums)
+
+    def sizes(res, sums):
+        check(len(res.codes) > 0 and np.isin(res.codes, res.rare).all(),
+              "no unique k-mer, or one that is not rare")
+        return {"rare_kmers": len(res.rare), "unique_kmers": len(res.codes),
+                "edges": len(res.edges.i),
+                "pair_observations": sums["pair_obs"],
+                **{k: sums.get(k, 0) for k in (
+                    "strips", "raw_strips", "table_strips",
+                    "host_planned_strips", "strip_splits",
+                    "strips_coalesced")}}
+
+    cut_arr, cut_dec, cut_reads, _ = make_world(unit, CUT_UNITS)
+    cut = {"units": CUT_UNITS, "reads": cut_reads}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            out = os.path.join(tmp, where)
+            res, secs, sums = run(cut_dec, d, out)
+            runs[where] = res, read_artifacts(out, cfg.min_coverage), sums
+            cut[f"{where}_seconds"] = secs
+    (cpu, cpu_files, _), (card, card_files, sums) = runs["cpu"], runs["card"]
+    check(np.array_equal(cpu.rare, card.rare),
+          "cut world: rare k-mers on the card != on the CPU")
+    check(cpu_files == card_files,
+          "cut world: unique k-mers or edges on the card != on the CPU")
+    cut.update(sizes(card, sums), identical=True,
+               truth=truth_sample(cut_arr, len(unit), cfg, card))
+    # the sweep's other paths on the cut's clouds, the card against the
+    # CPU and against the run above
+    cut["sweeps"] = {}
+    for name, kw in CUT_SWEEPS.items():
+        got, secs = [], {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            log.sums.clear()
+            t = time.perf_counter()
+            got.append(recruit_unique_kmers(
+                card.clouds, card.n_units, card.rare, cfg, device=d, **kw))
+            secs[f"{where}_seconds"] = time.perf_counter() - t
+        for codes, e in got:
+            check(np.array_equal(codes, card.codes) and all(
+                np.array_equal(getattr(e, f), getattr(card.edges, f))
+                for f in ("i", "j", "dist", "freq")),
+                f"cut world, sweep {name}: the card or the CPU differs")
+        cut["sweeps"][name] = {k: log.sums.get(k, 0) for k in (
+            "strips", "raw_strips", "table_strips", "strip_splits",
+            "strips_coalesced")} | secs
+    del runs, cpu, card
+
+    t = time.perf_counter()
+    arr, dec, n_reads, read_bp = make_world(unit, N_UNITS)
+    world_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        res, run_s, sums = run(dec, dev, tmp)
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "recruited_unique_kmers",
+                               f"unique_kmers_min_edge_cov_"
+                               f"{cfg.min_coverage}.txt")) as f:
+            from_file = [string_to_kmer_code(ln.strip()) for ln in f]
+    logger.removeHandler(log)
+    check(from_file == res.codes.tolist(),
+          "full world: the k-mer artifact differs from the result")
+    t = time.perf_counter()
+    truth = truth_sample(arr, len(unit), cfg, res)
+    truth_s = time.perf_counter() - t
+    seconds = {k: sums[k] for k in (
+        "rare", "rare_occ", "rare_count_merge", "rare_readback", "clouds",
+        "sweep", "sweep_plan", "artifacts")}
+    seconds["sweep_device"] = sums["sweep"] - sums["sweep_plan"]
+    emit({"phase": "unique_kmers", "units": N_UNITS,
+          "div_rate": DIV_RATE, "noise": READ_NOISE,
+          "coverage_config": COVERAGE, "reads": n_reads,
+          "records": len(dec.records), "mbp": read_bp / 1e6,
+          "record_mbp": sum(r.r_len for r in dec.records.values()) / 1e6,
+          "read_coverage": read_bp / arr.size, **sizes(res, sums),
+          "unique_once_in_array": truth.pop("unique_once_in_array"),
+          "truth": truth, "truth_seconds": truth_s,
+          "world_seconds": world_s, "run_seconds": run_s,
+          "phase_seconds": seconds, "max_memory_allocated": peak,
+          "cut_world": cut, "seconds": time.perf_counter() - t0})
+
+
 def main():
     smi_line, kind = phase_device()
     dev = torch.device("cuda")
@@ -626,6 +908,7 @@ def main():
     phase_cli(reads, recruited, dev)
     ops_launches, at_2048 = phase_myers_ops(unit, reads, recruited, batches,
                                             overlap, dev, rate)
+    phase_unique_kmers(unit, dev)
     for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kernel.setdefault("instances", {}).update(at_2048[key])
     emit({"kernels": [

@@ -1,6 +1,9 @@
 """The port's k-mer primitives and seed filter against the JAX package on
 the same numpy-seeded inputs, exactly: `pack_kmers`, `lookup_codes`,
-`build_seed_table`, `seed_hit_counts` and `seed_hit_counts_bitmap`."""
+`build_seed_table`, `seed_hit_counts` and `seed_hit_counts_bitmap`, and
+the counting tables (`count_unique`, `count_read_kmer_stats`,
+`merge_count_tables`, `table_to_numpy`), whose int64 keys are split back
+into the JAX (hi, lo) words to compare."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -144,3 +147,98 @@ def test_seed_hit_counts_match_jax(k, stride):
     np.testing.assert_array_equal(got_bm.numpy(), np.asarray(want_bm))
     np.testing.assert_array_equal(got_tb.numpy(), np.asarray(want_tb))
     assert got_tb[0] > 50 and got_tb[1] > 50 and got_tb[3] == 0
+
+
+def _keys_and_jax(k, seed, B=16, L=70):
+    """The windows of a batch with repeats inside and across rows, as JAX
+    (hi, lo) words and as the port's int64 keys."""
+    codes, lens = _batch(seed, B, L)
+    codes[9] = codes[10]
+    codes[11, 35:] = codes[11, :35]
+    lens[9] = lens[10] = lens[11] = L
+    hi, lo, _ = jkmers.pack_kmers(jnp.asarray(codes), jnp.asarray(lens), k=k)
+    th, tl, _ = tkmers.pack_kmers(torch.from_numpy(codes),
+                                  torch.from_numpy(lens), k=k)
+    return hi, lo, tkmers.join_keys(th, tl)
+
+
+def _same_table(got_keys, want_hi, want_lo):
+    hi, lo = tkmers.split_keys(got_keys)
+    np.testing.assert_array_equal(_np(hi), np.asarray(want_hi))
+    np.testing.assert_array_equal(_np(lo), np.asarray(want_lo))
+
+
+def test_keys_round_trip_and_sort_last():
+    hi = torch.tensor([0, 5, tkmers.SENTINEL, (1 << 30) - 1, 7])
+    lo = torch.tensor([3, tkmers.SENTINEL, tkmers.SENTINEL, 9, 0])
+    keys = tkmers.join_keys(hi, lo)
+    assert int(keys[2]) == tkmers.KEY_SENTINEL == int(keys.max())
+    for a, b in zip(tkmers.split_keys(keys), (hi, lo)):
+        assert torch.equal(a, b)
+    s, p = tkmers.sort_by_code(keys, torch.arange(5))
+    assert s.tolist() == sorted(keys.tolist()) and p.tolist() == [0, 1, 4,
+                                                                  3, 2]
+
+
+@pytest.mark.parametrize("k", [13, 19, 31])
+@pytest.mark.parametrize("capacity", [16, 1024, 4096])
+def test_count_unique_matches_jax(k, capacity):
+    """capacity 16 is below the run count: the table holds the first
+    runs and n is the true count."""
+    hi, lo, keys = _keys_and_jax(k, k)
+    want = jkmers.count_unique(hi, lo, capacity=capacity)
+    got = tkmers.count_unique(keys, capacity=capacity)
+    _same_table(got[0], want[0], want[1])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[2]))
+    assert got[1].dtype == torch.int32
+    assert int(got[2]) == int(want[3]) and (int(got[2]) > capacity) \
+        == (capacity == 16)
+
+
+@pytest.mark.parametrize("k", [13, 19, 31])
+@pytest.mark.parametrize("capacity", [16, 4096])
+def test_count_read_kmer_stats_matches_jax(k, capacity):
+    hi, lo, keys = _keys_and_jax(k, 2 * k)
+    rid = np.broadcast_to((np.arange(16, dtype=np.int32) % 5)[:, None],
+                          hi.shape).copy()
+    want = jkmers.count_read_kmer_stats(hi, lo, jnp.asarray(rid),
+                                        capacity=capacity)
+    got = tkmers.count_read_kmer_stats(keys, torch.from_numpy(rid),
+                                       capacity=capacity)
+    _same_table(got[0], want[0], want[1])
+    for g, w in zip(got[1:3], want[2:4]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[3]) == int(want[4])
+    # in-read repeats seen
+    assert capacity == 16 or (np.asarray(want[3]) > 0).any()
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+@pytest.mark.parametrize("capacity", [32, 1024])
+def test_merge_count_tables_and_readback_match_jax(two_d, capacity):
+    """Two tables with shared keys, 1-D and 2-D counts; capacity 32 is
+    below the merged run count. Then table_to_numpy of both."""
+    rng = np.random.default_rng(capacity + two_d)
+    tabs = []
+    for seed in (3, 4):
+        hi, lo, keys = _keys_and_jax(19, seed)
+        w = jkmers.count_unique(hi, lo, capacity=512)
+        g = tkmers.count_unique(keys, capacity=512)
+        extra = rng.integers(0, 9, (512, 2)).astype(np.int32)
+        if two_d:
+            wc = jnp.stack([w[2], jnp.asarray(extra[:, 0])], axis=1)
+            gc = torch.stack([g[1], torch.from_numpy(extra[:, 0])], dim=1)
+        else:
+            wc, gc = w[2], g[1]
+        tabs.append(((w[0], w[1], wc), (g[0], gc)))
+    (wa, ga), (wb, gb) = tabs
+    want = jkmers.merge_count_tables(*wa, *wb, capacity=capacity)
+    got = tkmers.merge_count_tables(*ga, *gb, capacity=capacity)
+    _same_table(got[0], want[0], want[1])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[2]))
+    assert int(got[2]) == int(want[3]) and (int(got[2]) > capacity) \
+        == (capacity == 32)
+    for g, w in zip(tkmers.table_to_numpy(*got),
+                    jkmers.table_to_numpy(*want)):
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype

@@ -225,6 +225,30 @@ assert myers_hw_v3_banded(peq, codes.t().contiguous(), lens, m=30,
 assert myers_distance_batch(peq[None], codes, lens, m=30, collect="all",
                             ms=torch.tensor([30]))["scores"].shape == (1, 160)
 assert kmers.pack_kmers(codes, lens, k=13)[2].all()
+import tempfile
+from centroflye_tpu_torch.config import KmerRecruitmentConfig
+from centroflye_tpu_torch.pipeline.cenx import (load_decomposition,
+                                                run_unique_kmers,
+                                                save_decomposition)
+from centroflye_tpu_torch.stages.unit_decomposition import (DecompRecord,
+                                                            Decomposition)
+from centroflye_tpu_torch.stages import distance_graph, kmer_cloud, rare_kmers
+copies = []                   # ten unit copies, one substitution each
+for c in range(10):
+    u = list(unit)
+    u[11 * c] = "ACGT"[("ACGT".index(u[11 * c]) + 1) % 4]
+    copies.append("".join(u))
+seq = "".join(copies)
+bounds = np.arange(11, dtype=np.int32) * len(unit)
+recs = {f"r{i}": DecompRecord(f"r{i}", len(seq), "+", 0, len(seq), seq,
+                              bounds) for i in range(8)}
+with tempfile.TemporaryDirectory() as tmp:
+    save_decomposition(Decomposition(recs, {}, {}, []), tmp + "/d.json")
+    uniq = run_unique_kmers(load_decomposition(tmp + "/d.json"),
+                            KmerRecruitmentConfig(k=13, max_distance=3,
+                                                  min_coverage=2, bottom=0.0),
+                            8, tmp, device="cpu").codes
+assert len(uniq) > 0, uniq
 bad = sorted(m for m in sys.modules if m.split(".")[0] == "centroflye_tpu")
 assert not bad, bad
 print("ok")
