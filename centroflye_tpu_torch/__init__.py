@@ -10,9 +10,16 @@ Ported so far: stage 1 of cenX, read recruitment
 packing and lookup, seed filter, fused step), with a Hopper kernel for
 each of the JAX package's Pallas kernels: two-strand and one-strand HW
 Myers in `csrc/myers_hw_2strand.cu`, threshold-k banded HW Myers in
-`csrc/myers_hw_banded.cu`. Then stage 3, rare k-mers and the
-distance-graph unique k-mers (`pipeline/cenx.py::run_unique_kmers` over
+`csrc/myers_hw_banded.cu`. Then stages 2-4 of cenX as functions of
+`pipeline/cenx.py`: unit decomposition (`run_decomposition` over
+`stages/unit_decomposition.py` and `stages/ncrf_compat.py`, host numpy
+with the port's own copy of the JAX package's native Myers engine in
+`native/`, built with g++ on first use); rare k-mers and the
+distance-graph unique k-mers (`run_unique_kmers` over
 `stages/rare_kmers.py`, `stages/kmer_cloud.py` and
-`stages/distance_graph.py`), whose device work is plain PyTorch: the JAX
+`stages/distance_graph.py`); greedy placement and its validation
+(`run_placement`, `run_placement_validation` over `ops/scoring.py`,
+`stages/cloud_contig.py`, `stages/placement_fast.py` and
+`stages/read_placer.py`). Their device work is plain PyTorch: the JAX
 package has no Pallas kernel there.
 """

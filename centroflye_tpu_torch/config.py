@@ -1,6 +1,6 @@
 """Typed configuration of the port: the same fields and defaults as
 the JAX package's `config.py`, for the stages ported so far (read
-recruitment, rare and unique k-mers)."""
+recruitment, unit decomposition, rare and unique k-mers, placement)."""
 
 from __future__ import annotations
 
@@ -30,6 +30,21 @@ class RecruitmentConfig:
     # Kept for field parity with the JAX config; the port has no
     # multi-device mesh, so no sequence-parallel tier reads it.
     seq_parallel_min_len: int = 3 * 32768
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitDecompositionConfig:
+    """NCRF-equivalent tandem decomposition of reads into unit instances
+    (replaces the external NCRF binary; artifact-compatible with
+    reference scripts/ncrf_parser.py parsing)."""
+
+    # Only the longest alignment of a read is kept, and only if it is at least
+    # this long (reference ncrf_parser.py:61 min_record_len).
+    min_record_len: int = 5000
+    # Seed k-mer length used to anchor unit instances within a read.
+    seed_k: int = 15
+    # Max divergence allowed when validating a unit instance (fractional).
+    max_unit_divergence: float = 0.35
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +79,21 @@ class KmerRecruitmentConfig:
     # k-mers pair with tens of unit copies; chance noise pairs are
     # nearly isolated). 1 disables.
     auto_min_degree: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacerConfig:
+    """Read placement (reference read_placer.py:131-170 defaults)."""
+
+    n_motif: int = 1
+    k_cloud: int = 19
+    min_cloud_kmer_freq: int = 2
+    min_kmer_mult: int = 2
+    min_unit: int = 2              # threshold on score[0]
+    min_inters: int = 10           # threshold on score[1]
+    min_prop: int = 3              # score[1] >= min_prop * score[0]
+    prefix_threshold: int = 50000  # read classification large_threshold
+    small_threshold: int = 1000    # read classification small_threshold
 
 
 # The JAX package's CentroFlyeConfig.coverage default: the read coverage

@@ -11,23 +11,39 @@ instance is held against the plain version and timed at 128 x 10240
 wrapper's instance is held against the plain version on exact-tier
 batch 0), beside the instance the wrapper picks. Each kernel is listed with its bound: the
 larger of its operations over the card's INT32 rate at the maximum SM
-clock and its bytes over the memory rate. Last, phase unique_kmers drives
-stage 3 of cenX (rare k-mers, then the distance-graph unique k-mers,
-through pipeline/cenx.run_unique_kmers; plain PyTorch on the card, no
-kernel of its own) on a simulated world of the production cenX shape:
-the card's output must equal the CPU's on a cut of that world, also
-through the sweep's raw, table and split paths at small capacities; on
-the cut and on the full world the card's edges must equal a numpy count
-of sampled true k-mer pairs; the full world prints its sizes, the strips
-of each sweep path, phase seconds and peak device memory.
+clock and its bytes over the memory rate.
+
+Then stages 2-4 of cenX on a simulated world of the production cenX
+shape (make_world: a 1,500-unit DXZ1 array, reads at 52x, and 24 prefix
+and 24 suffix reads with 52-90 kb of flank). Phase decomposition builds
+the port's native Myers library (g++) and runs the unit decomposer on
+the host: the boundary reads must classify as 24 prefix and 24 suffix
+reads, and a sample of the world's records is held against its true
+bounds. Phase unique_kmers drives stage 3 (rare k-mers, then the
+distance-graph unique k-mers, through pipeline/cenx.run_unique_kmers;
+plain PyTorch on the card, no kernel of its own): the card's output must
+equal the CPU's on a cut of that world, also through the sweep's raw,
+table and split paths at small capacities; on the cut and on the full
+world the card's edges must equal a numpy count of sampled true k-mer
+pairs; the full world prints its sizes, the strips of each sweep path,
+phase seconds and peak device memory. Phase placement drives stage 4
+(run_placement, its bulk scoring on the card, then
+run_placement_validation) on the full world with stage 3's unique
+k-mers: every bulk-scoring call must equal the other scorer on the card
+(and the CPU on the first), read_positions.csv must be the JAX
+package's (its digest, tools/placement_vs_jax.py), and the placed reads
+must sit at their true unit and re-map there.
 
     python3 chip_smoke.py
 
 Each phase prints one JSON line with its seconds. Any failed check exits
 non-zero. Needs CUDA: without a card it fails and prints no result. The
-last line is {"ok": true, "device": {...}}.
-"""
+last line is {"ok": true, "device": {...}}."""
 
+import collections
+import contextlib
+import dataclasses
+import hashlib
 import json
 import logging
 import os
@@ -38,22 +54,28 @@ import time
 import numpy as np
 import torch
 
+from centroflye_tpu_torch import native
 from centroflye_tpu_torch.config import (COVERAGE, KmerRecruitmentConfig,
-                                         RecruitmentConfig)
+                                         PlacerConfig, RecruitmentConfig,
+                                         UnitDecompositionConfig)
 from centroflye_tpu_torch.io.encoding import (decode, encode, kmer_codes,
                                               revcomp, string_to_kmer_code)
 from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
-from centroflye_tpu_torch.ops import _build
+from centroflye_tpu_torch.ops import _build, scoring
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
     GROUPS, myers_hw_2strand, myers_hw_2strand_plain, myers_hw_v3,
     myers_hw_v3_banded, myers_hw_v3_plain, pick_group, threshold_hw)
-from centroflye_tpu_torch.pipeline.cenx import run_unique_kmers
+from centroflye_tpu_torch.pipeline.cenx import (run_placement,
+                                                run_placement_validation,
+                                                run_unique_kmers)
 from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
                                                     gen_random_seq)
 from centroflye_tpu_torch.stages.distance_graph import recruit_unique_kmers
+from centroflye_tpu_torch.stages.read_placer import read_positions_file
 from centroflye_tpu_torch.stages.unit_decomposition import (DecompRecord,
-                                                            Decomposition)
+                                                            Decomposition,
+                                                            UnitDecomposer)
 from centroflye_tpu_torch.stages.recruitment import (RecruitmentEngine,
                                                      recruit_file,
                                                      segment_starts)
@@ -98,6 +120,14 @@ DIV_RATE = 0.003
 READ_NOISE = 0.055
 READ_COVERAGE = 52
 MIN_RECORD_LEN = 5000     # UnitDecompositionConfig.min_record_len
+BOUNDARY_READS = 24       # prefix reads, and as many suffix reads
+FLANK_BP = 200_000        # each end's flank (the JAX demo's)
+# sha256 of read_positions.csv as the JAX package's ReadPlacer writes it
+# for the full world's records and unique k-mers (CPU, on the card's
+# machine): `JAX_PLATFORMS=cpu python3 tools/placement_vs_jax.py`
+PLACEMENT_DIGEST = (
+    "23748246ac3eb7c76415a459e7fb08a13b7a5c2b6b902af2553e197c5f211841")
+DECOMP_SAMPLE = 500       # world records decomposed again in stage 2
 
 
 def emit(obj):
@@ -656,14 +686,57 @@ def rel2_length_mix(rng, n):
     return np.clip(lens, 3_000, 200_000).astype(np.int64)
 
 
+def add_noise(rng, src):
+    """Uniform READ_NOISE on a code array, in bulk: deletion, insertion
+    before the base, substitution, a third each. Returns the noisy codes
+    and `cum`, where cum[i] is where source base i's span (an insertion
+    before it, then the base) starts in the output and cum[-1] is the
+    output's length."""
+    src = src.copy()
+    r = rng.random(src.size)
+    third = READ_NOISE / 3
+    dele, ins = r < third, (r >= third) & (r < 2 * third)
+    sub = (r >= 2 * third) & (r < READ_NOISE)
+    src[sub] = (src[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    emit = np.where(dele, 0, np.where(ins, 2, 1))
+    cum = np.concatenate([[0], np.cumsum(emit)])
+    out = np.empty(int(cum[-1]), np.int8)
+    out[cum[:-1][~dele] + ins[~dele]] = src[~dele]
+    out[cum[:-1][ins]] = rng.integers(0, 4, int(ins.sum()))
+    return out, cum
+
+
+@dataclasses.dataclass
+class World:
+    """The simulated cenX world of `make_world`."""
+
+    arr: np.ndarray           # the tandem array's codes
+    unit_len: int
+    dec: Decomposition        # the records standing in for stage 2
+    n_reads: int              # reads over the array, records or not
+    read_bp: int
+    u0: dict                  # record or boundary read -> its first unit
+    # the reads over the array's ends: (r_id, seq), and each read's true
+    # whole-unit boundaries in its coordinates
+    boundary: list
+    boundary_bounds: dict
+
+
 def make_world(unit, n_units, seed=WORLD_SEED):
-    """Stage 3's input, in bulk numpy: a tandem array of n_units copies
-    of `unit` with DIV_RATE substitutions, reads of the rel2 mix at
-    READ_COVERAGE x over it with uniform READ_NOISE (deletion, insertion
-    before the base, substitution: a third each), and the decomposition
-    records that stand in for stage 2: each read's whole units, strand
-    +, bounds at the simulated unit boundaries carried through the noise.
-    Returns (array codes, Decomposition, read count, read bases)."""
+    """Stages 2-4's input, in bulk numpy: a tandem array of n_units
+    copies of `unit` with DIV_RATE substitutions, reads of the rel2 mix
+    at READ_COVERAGE x over it with uniform READ_NOISE (`add_noise`), and
+    the decomposition records that stand in for stage 2: each read's
+    whole units, strand +, bounds at the simulated unit boundaries
+    carried through the noise. Then, from a second generator (seed + 1,
+    so the records above do not move), the reads over the array's ends
+    that benchmarks/demo_cenx_production.py's flanked genome has: a
+    random FLANK_BP flank at each end; BOUNDARY_READS prefix and as many
+    suffix reads shaped as its extra ones, 52-90 kb of flank before
+    (after) 4-10 whole units at the array's start (end); and the
+    rel2-mix reads at READ_COVERAGE that cross an end from its flank
+    with MIN_RECORD_LEN of whole units (ids lft*, rgt*), all with the
+    same noise. Only the decomposer turns these into records."""
     rng = np.random.default_rng(seed)
     m = len(unit)
     arr = np.tile(encode(unit), n_units)
@@ -681,29 +754,65 @@ def make_world(unit, n_units, seed=WORLD_SEED):
     keep = nu * m >= MIN_RECORD_LEN
     u0, nu = u0[keep], nu[keep]
     # the records' bases, concatenated, with the noise applied in bulk
-    src = np.concatenate([arr[a * m:(a + n) * m] for a, n in zip(u0, nu)])
-    r = rng.random(src.size)
-    third = READ_NOISE / 3
-    dele, ins = r < third, (r >= third) & (r < 2 * third)
-    sub = (r >= 2 * third) & (r < READ_NOISE)
-    src[sub] = (src[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
-    emit = np.where(dele, 0, np.where(ins, 2, 1))
-    cum = np.concatenate([[0], np.cumsum(emit)])
-    out = np.empty(int(cum[-1]), np.int8)
-    out[cum[:-1][~dele] + ins[~dele]] = src[~dele]
-    out[cum[:-1][ins]] = rng.integers(0, 4, int(ins.sum()))
-    records, g0 = {}, 0
-    for i, n in enumerate(nu):
+    out, cum = add_noise(rng, np.concatenate(
+        [arr[a * m:(a + n) * m] for a, n in zip(u0, nu)]))
+    records, first, g0 = {}, {}, 0
+    for i, (a, n) in enumerate(zip(u0, nu)):
         b = cum[g0 + np.arange(n + 1) * m]
         seq = decode(out[b[0]:b[-1]])
         r_id = f"w{i:05d}"
         records[r_id] = DecompRecord(r_id, len(seq), "+", 0, len(seq), seq,
                                      (b - b[0]).astype(np.int32))
+        first[r_id] = int(a)
         g0 += n * m
     dec = Decomposition(records, {r: [(0, rec.r_len, "+")]
                                   for r, rec in records.items()},
                         {r: rec.r_len for r, rec in records.items()}, [])
-    return arr, dec, n_reads, int(lens.sum())
+    rng = np.random.default_rng(seed + 1)
+    left, right = (rng.integers(0, 4, FLANK_BP).astype(np.int8)
+                   for _ in range(2))
+    # (r_id, source codes, where its first whole unit starts, whole units,
+    # the first whole unit's index in the array)
+    reads = []
+    for kind in ("pre", "suf"):
+        for j in range(BOUNDARY_READS):
+            f = int(rng.integers(52_000, 90_000))
+            into = int(rng.integers(4, 10))
+            if kind == "pre":
+                reads.append((f"pre{j:02d}", np.concatenate(
+                    [left[FLANK_BP - f:], arr[:into * m]]), f, into, 0))
+            else:
+                reads.append((f"suf{j:02d}", np.concatenate(
+                    [arr[arr.size - into * m:], right[:f]]), 0, into,
+                    n_units - into))
+    # the rel2-mix reads at READ_COVERAGE that cross an end of the array
+    # from a FLANK_BP flank, as the JAX demo's reads over its flanked
+    # genome do: from each side, reads starting (ending) uniformly in the
+    # flank, kept if they hold MIN_RECORD_LEN of whole units
+    for kind in ("lft", "rgt"):
+        side = rel2_length_mix(rng, int(READ_COVERAGE * FLANK_BP / 3_000))
+        side = side[:int(np.searchsorted(np.cumsum(side),
+                                         READ_COVERAGE * FLANK_BP)) + 1]
+        f = rng.integers(1, FLANK_BP + 1, side.size)   # flank bases held
+        inside = np.minimum(side - f, arr.size)
+        for j in np.flatnonzero(inside // m * m >= MIN_RECORD_LEN):
+            fj, ij = int(f[j]), int(inside[j])
+            if kind == "lft":
+                reads.append((f"lft{j:03d}", np.concatenate(
+                    [left[FLANK_BP - fj:], arr[:ij]]), fj, ij // m, 0))
+            else:
+                a = -(-(arr.size - ij) // m)
+                reads.append((f"rgt{j:03d}", np.concatenate(
+                    [arr[arr.size - ij:], right[:fj]]),
+                    a * m - (arr.size - ij), n_units - a, a))
+    boundary, true_bounds = [], {}
+    for r_id, src, at, nu, a in reads:
+        noisy, cum = add_noise(rng, src)
+        boundary.append((r_id, decode(noisy)))
+        true_bounds[r_id] = cum[at + np.arange(nu + 1) * m]
+        first[r_id] = a
+    return World(arr, m, dec, n_reads, int(lens.sum()), first, boundary,
+                 true_bounds)
 
 
 class PhaseLog(logging.Handler):
@@ -739,10 +848,7 @@ def truth_sample(arr, m, cfg, res, n_pairs=TRUTH_PAIRS):
     (i, j, 1) must be in the result, with that count, exactly when the
     rule keeps it (count >= min_coverage and count / all distances >=
     rel_threshold). Also the share of unique k-mers once in the array."""
-    codes, valid = kmer_codes(arr, cfg.k)
-    u, first, cnt = np.unique(codes[valid], return_index=True,
-                              return_counts=True)
-    once, once_pos = u[cnt == 1], np.flatnonzero(valid)[first][cnt == 1]
+    once, once_pos = once_in_array(arr, cfg.k)
     in_rare = np.isin(once, res.rare)
     tensor = res.clouds
     check(tensor.shape[1] < 1000, "truth sample: a record of 1000 units")
@@ -781,8 +887,8 @@ def truth_sample(arr, m, cfg, res, n_pairs=TRUTH_PAIRS):
             bad.append((i, j, c1, total, got.get((i, j))))
     out = {"once_in_array": len(once), "once_and_rare": int(in_rare.sum()),
            "pairs": len(pick), "edges_by_rule": want, "differ": len(bad),
-           "count_hist": np.bincount(np.minimum(counts, 12),
-                                     minlength=13).tolist(),
+           "count_hist": np.bincount(np.minimum(np.asarray(counts, int),
+                                                12), minlength=13).tolist(),
            "examples": bad[:5],
            "unique_once_in_array": float(np.isin(res.codes, once).mean())}
     check(len(pick) > 0 and want > 0 and not bad,
@@ -790,14 +896,23 @@ def truth_sample(arr, m, cfg, res, n_pairs=TRUTH_PAIRS):
     return out
 
 
-def phase_unique_kmers(unit, dev):
+def merge_decompositions(a, b):
+    return Decomposition({**a.records, **b.records},
+                         {**a.positions_all, **b.positions_all},
+                         {**a.read_lens, **b.read_lens},
+                         a.discarded + b.discarded)
+
+
+def phase_unique_kmers(unit, dev, world, world_s, boundary_dec):
     """Stage 3 (rare k-mers, then the distance-graph unique k-mers) through
-    `run_unique_kmers`. First the cut world on the card and on the CPU:
-    the rare codes, the unique codes and the edges (i, j, d, freq; the
-    edge file) must be identical. Then the full world on the card. Both
-    print their sizes and the strips each sweep path took, and both hold
-    the card's edges against `truth_sample`; the full world also prints
-    its phase seconds and peak device memory."""
+    `run_unique_kmers`. First the cut world (its records only) on the
+    card and on the CPU: the rare codes, the unique codes and the edges
+    (i, j, d, freq; the edge file) must be identical. Then the full
+    world's records with the decomposed boundary reads' on the card.
+    Both print their sizes and the strips each sweep path took, and both
+    hold the card's edges against `truth_sample`; the full world also
+    prints its phase seconds and peak device memory. Returns the full
+    world's result and its Decomposition, for phase placement."""
     t0 = time.perf_counter()
     cfg = KmerRecruitmentConfig()
     log = PhaseLog()
@@ -823,8 +938,9 @@ def phase_unique_kmers(unit, dev):
                     "host_planned_strips", "strip_splits",
                     "strips_coalesced")}}
 
-    cut_arr, cut_dec, cut_reads, _ = make_world(unit, CUT_UNITS)
-    cut = {"units": CUT_UNITS, "reads": cut_reads}
+    cut_world = make_world(unit, CUT_UNITS)
+    cut_arr, cut_dec = cut_world.arr, cut_world.dec
+    cut = {"units": CUT_UNITS, "reads": cut_world.n_reads}
     with tempfile.TemporaryDirectory() as tmp:
         runs = {}
         for where, d in (("cpu", "cpu"), ("card", dev)):
@@ -860,9 +976,8 @@ def phase_unique_kmers(unit, dev):
             "strips_coalesced")} | secs
     del runs, cpu, card
 
-    t = time.perf_counter()
-    arr, dec, n_reads, read_bp = make_world(unit, N_UNITS)
-    world_s = time.perf_counter() - t
+    arr, read_bp = world.arr, world.read_bp
+    dec = merge_decompositions(world.dec, boundary_dec)
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         res, run_s, sums = run(dec, dev, tmp)
@@ -883,8 +998,10 @@ def phase_unique_kmers(unit, dev):
     seconds["sweep_device"] = sums["sweep"] - sums["sweep_plan"]
     emit({"phase": "unique_kmers", "units": N_UNITS,
           "div_rate": DIV_RATE, "noise": READ_NOISE,
-          "coverage_config": COVERAGE, "reads": n_reads,
-          "records": len(dec.records), "mbp": read_bp / 1e6,
+          "coverage_config": COVERAGE, "reads": world.n_reads,
+          "records": len(dec.records),
+          "boundary_records": len(boundary_dec.records),
+          "mbp": read_bp / 1e6,
           "record_mbp": sum(r.r_len for r in dec.records.values()) / 1e6,
           "read_coverage": read_bp / arr.size, **sizes(res, sums),
           "unique_once_in_array": truth.pop("unique_once_in_array"),
@@ -892,6 +1009,337 @@ def phase_unique_kmers(unit, dev):
           "world_seconds": world_s, "run_seconds": run_s,
           "phase_seconds": seconds, "max_memory_allocated": peak,
           "cut_world": cut, "seconds": time.perf_counter() - t0})
+    return res, dec
+
+
+def bound_errors(dec, truth):
+    """Records of `dec` against true unit boundaries (r_id -> boundary
+    positions in the read): how many reads gave a record, how many on
+    strand + with the true unit count, and over those the median and
+    largest |boundary - true boundary| in bp."""
+    found = [r for r in truth if r in dec.records]
+    right = [r for r in found if dec.records[r].strand == "+"
+             and dec.records[r].n_units == len(truth[r]) - 1]
+    err = np.concatenate([np.abs(dec.records[r].bounds.astype(np.int64)
+                                 + dec.records[r].r_st - truth[r])
+                          for r in right] or [np.zeros(0, np.int64)])
+    return {"reads": len(truth), "records": len(found),
+            "true_unit_count": len(right),
+            "bound_err_median_bp": float(np.median(err)) if err.size else None,
+            "bound_err_max_bp": int(err.max()) if err.size else None}
+
+
+def phase_decomposition(unit, world):
+    """Stage 2 on the host: the port's native Myers library builds (g++)
+    and loads; `UnitDecomposer` turns the reads over the array's ends
+    into records (the 24 shaped prefix and 24 suffix reads must classify
+    so, and the flank-crossing reads are counted against the class
+    their flank gives), and decomposes a seeded sample of DECOMP_SAMPLE
+    of the world's records; each set is held against the true bounds
+    `make_world` knows. Returns the boundary reads' Decomposition."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    decomposer = UnitDecomposer(unit, UnitDecompositionConfig())
+    t = time.perf_counter()
+    bdec = decomposer.decompose(world.boundary)
+    boundary_s = time.perf_counter() - t
+    pcfg = PlacerConfig()
+    classes = bdec.classify(pcfg.prefix_threshold, pcfg.small_threshold)
+    got = {r: name for name, ids in zip(("prefix", "internal", "suffix"),
+                                        classes) for r in ids}
+    seqs = dict(world.boundary)
+    shaped = [r for r in seqs if r[:3] in ("pre", "suf")]
+    crossing = [r for r in seqs if r not in shaped]
+
+    def flank_class(r):
+        b = world.boundary_bounds[r]
+        if r.startswith("lft") and b[0] > pcfg.prefix_threshold:
+            return "prefix"
+        if r.startswith("rgt") and \
+                len(seqs[r]) - b[-1] > pcfg.prefix_threshold:
+            return "suffix"
+        return "internal"
+
+    def stats(ids):
+        truth = {r: world.boundary_bounds[r] for r in ids}
+        mbp = sum(len(seqs[r]) for r in ids) / 1e6
+        return {**bound_errors(bdec, truth), "mbp": mbp,
+                **{name: sum(got.get(r) == name for r in ids)
+                   for name in ("prefix", "internal", "suffix")}}
+
+    ids = sorted(world.dec.records)
+    pick = np.random.default_rng(WORLD_SEED).choice(
+        len(ids), min(DECOMP_SAMPLE, len(ids)), replace=False)
+    sample = [(ids[i], world.dec.records[ids[i]].seq) for i in sorted(pick)]
+    t = time.perf_counter()
+    sdec = decomposer.decompose(sample)
+    sample_s = time.perf_counter() - t
+    s_err = bound_errors(sdec, {r: world.dec.records[r].bounds
+                                for r, _ in sample})
+    s_mbp = sum(len(seq) for _, seq in sample) / 1e6
+    b_mbp = sum(len(seq) for seq in seqs.values()) / 1e6
+    emit({"phase": "decomposition", "library": os.path.relpath(lib, HERE),
+          "build_seconds": build_s,
+          "boundary": {"mbp": b_mbp, "seconds": boundary_s,
+                       "mbp_per_s": b_mbp / boundary_s,
+                       "shaped": stats(shaped),
+                       "flank_crossing": {
+                           **stats(crossing),
+                           "class_as_flank": sum(got.get(r) == flank_class(r)
+                                                 for r in crossing),
+                           "by_flank": collections.Counter(
+                               map(flank_class, crossing))}},
+          "sample": {**s_err, "mbp": s_mbp, "seconds": sample_s,
+                     "mbp_per_s": s_mbp / sample_s},
+          "seconds": time.perf_counter() - t0})
+    want = {r: "prefix" if r.startswith("pre") else "suffix" for r in shaped}
+    check({r: got.get(r) for r in shaped} == want,
+          f"shaped boundary reads: classify gave "
+          f"{collections.Counter(got.get(r) for r in shaped)}")
+    check(sum(got.get(r) == flank_class(r) for r in crossing)
+          >= 0.95 * len(crossing), "flank-crossing reads: classify "
+          "disagrees with their flanks")
+    check(s_err["records"] >= 0.95 * len(sample)
+          and s_err["true_unit_count"] >= 0.9 * len(sample),
+          f"decomposed sample: {s_err}")
+    return bdec
+
+
+def bitmap_bits(words):
+    """(..., W) uint32 bitmap words -> (..., 32 W) bool, bit v of word
+    v // 32 at v."""
+    words = np.ascontiguousarray(words, dtype="<u4")
+    return np.unpackbits(words.view(np.uint8), axis=-1,
+                         bitorder="little").astype(bool)
+
+
+def scoring_inputs(call):
+    """The inputs of a recorded bulk-scoring call in both forms: (clouds
+    (R, T, K) int32, contig pairs ck, cp, V, P) and (read bitmaps (R, T,
+    W), contig bitmap (P, W)) as uint32 numpy."""
+    if call["path"] == "matmul":
+        clouds, ck, cp = call["clouds"], call["ck"], call["cp"]
+        V, P = call["V"], call["P"]
+        contig = np.zeros((P, max(1, -(-V // 32))), np.uint32)
+        keep = cp < P
+        np.bitwise_or.at(contig, (cp[keep], ck[keep] // 32),
+                         (np.uint32(1) << (ck[keep] % 32).astype(np.uint32)
+                          ).astype(np.uint32))
+        return (clouds, ck, cp, V, P), (
+            scoring.clouds_to_bitmaps(clouds, V), contig)
+    reads, contig = call["reads"], call["contig"]
+    bits = bitmap_bits(reads)
+    V, P = bits.shape[-1], contig.shape[0]
+    K = max(1, int(bits.sum(-1).max()))
+    order = np.argsort(~bits, axis=-1, kind="stable")[..., :K]
+    clouds = np.where(np.take_along_axis(bits, order, -1), order, -1)
+    cp, ck = np.nonzero(bitmap_bits(contig))
+    return (clouds.astype(np.int32), ck.astype(np.int32),
+            cp.astype(np.int32), V, P), (reads, contig)
+
+
+@contextlib.contextmanager
+def recorded_scoring(calls):
+    """Records every bulk-scoring call of the placement (either scorer):
+    its inputs and outputs on the host and its milliseconds on the card
+    (synchronised before and after)."""
+    matmul, popcount = (scoring.placement_scores_matmul,
+                        scoring.placement_scores)
+
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s0, s1 = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return s0, s1, (time.perf_counter() - t) * 1e3
+
+    def rec_matmul(clouds, ck, cp, n_kmers, n_pos):
+        s0, s1, ms = timed(matmul, clouds, ck, cp, n_kmers=n_kmers,
+                           n_pos=n_pos)
+        calls.append({"path": "matmul", "clouds": clouds.cpu().numpy(),
+                      "ck": ck.cpu().numpy(), "cp": cp.cpu().numpy(),
+                      "V": n_kmers, "P": n_pos, "ms": ms,
+                      "s0": s0.cpu().numpy(), "s1": s1.cpu().numpy()})
+        return s0, s1
+
+    def rec_popcount(reads, contig):
+        s0, s1, ms = timed(popcount, reads, contig)
+        calls.append({"path": "popcount",
+                      "reads": reads.cpu().numpy().astype(np.uint32),
+                      "contig": contig.cpu().numpy().astype(np.uint32),
+                      "ms": ms, "s0": s0.cpu().numpy(),
+                      "s1": s1.cpu().numpy()})
+        return s0, s1
+
+    scoring.placement_scores_matmul = rec_matmul
+    scoring.placement_scores = rec_popcount
+    try:
+        yield
+    finally:
+        scoring.placement_scores_matmul = matmul
+        scoring.placement_scores = popcount
+
+
+def check_scoring_calls(calls, dev):
+    """Every recorded call's scores against the other scorer on the card,
+    on the same inputs; the first call's also against the port's CPU
+    path of the scorer it took. Returns each call's (R, T, V, P)."""
+    shapes = []
+    for i, call in enumerate(calls):
+        (clouds, ck, cp, V, P), (reads, contig) = scoring_inputs(call)
+        mm = scoring.placement_scores_matmul(
+            torch.from_numpy(clouds).to(dev), torch.from_numpy(ck).to(dev),
+            torch.from_numpy(cp).to(dev), n_kmers=V, n_pos=P)
+        pc = scoring.placement_scores(words_tensor(reads, dev),
+                                      words_tensor(contig, dev))
+        want = [call["s0"], call["s1"]]
+        for got in (mm, pc):
+            check(all(np.array_equal(g.cpu().numpy(), w)
+                      for g, w in zip(got, want)),
+                  f"scoring call {i}: matmul and popcount differ on the card")
+        if i == 0:
+            cpu = (scoring.placement_scores_matmul(
+                torch.from_numpy(clouds), torch.from_numpy(ck),
+                torch.from_numpy(cp), n_kmers=V, n_pos=P)
+                if call["path"] == "matmul" else scoring.placement_scores(
+                    words_tensor(reads, "cpu"), words_tensor(contig, "cpu")))
+            check(all(np.array_equal(g.numpy(), w)
+                      for g, w in zip(cpu, want)),
+                  "scoring call 0: the card differs from the CPU")
+        shapes.append([*clouds.shape[:2], V, P])
+    return shapes
+
+
+def phase_placement(world, dec, res, dev, want_digest=PLACEMENT_DIGEST):
+    """Stage 4 on the card at the full world: `run_placement` (the clouds
+    of stage 3's unique k-mers, then the greedy placement, its bulk
+    scoring on `dev`) and `run_placement_validation`, through the port's
+    entry points. Every bulk-scoring call is recorded and held against
+    the other scorer on the card, the first also against the CPU. Each
+    read's placement is held against its first whole unit `u0` (the
+    prefix reads seed position 0 at the array's first unit): placed,
+    the offsets' histogram and the share at the modal offset, and the
+    validation's agreement, with the phase's seconds and peak memory.
+    The greedy stops where no read reaches a valid score, at a stretch
+    of units without unique k-mers; the phase prints the contig's span,
+    the unique k-mers by unit around its end, and the placeable records
+    (the rule holds with every k-mer of their clouds matched) placed in
+    all and inside the span. Fails unless read_positions.csv is the JAX
+    package's for this world (`want_digest`, PLACEMENT_DIGEST for the
+    full world; None skips it for other worlds), 95% of the placed reads
+    sit at the modal offset 0, and 90% of them re-map to their
+    placement."""
+    t0 = time.perf_counter()
+    pcfg, kcfg = PlacerConfig(), KmerRecruitmentConfig()
+    log = PhaseLog()
+    logger = logging.getLogger("centroflye_tpu_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(log)
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_scoring(calls), tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        placements, clouds = run_placement(dec, res.codes, pcfg, kcfg.k,
+                                           tmp, device=dev)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t
+        t = time.perf_counter()
+        agree = run_placement_validation(placements, clouds, pcfg, kcfg,
+                                         tmp)
+        valid_s = time.perf_counter() - t
+        pos_fn = os.path.join(tmp, "tr_resolution", "read_positions.csv")
+        from_file = read_positions_file(pos_fn)
+        with open(pos_fn, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    peak = torch.cuda.max_memory_allocated()
+    logger.removeHandler(log)
+    sums = log.sums
+    check(from_file == placements,
+          "read_positions.csv differs from the placements")
+    check(calls, "the placement made no bulk-scoring call")
+    t = time.perf_counter()
+    shapes = check_scoring_calls(calls, dev)
+    check_s = time.perf_counter() - t
+    placed = {r: p for r, p in placements.items() if p is not None}
+    # placeable: the placement rule holds for the score a read would have
+    # if every k-mer of its clouds matched (score1 = its k-mers, score0
+    # = its non-empty clouds); with fewer, no offset can reach it
+    placeable = [r for r, rc in clouds.items() if valid_score(
+        pcfg, sum(len(c) > 0 for c in rc.clouds), sum(map(len, rc.clouds)))]
+    # the greedy grows the contig from the prefix reads and stops where
+    # no read reaches a valid score (a stretch of units without unique
+    # k-mers, printed beside)
+    span = max((p + clouds[r].n_units for r, p in placed.items()),
+               default=0)
+    inside = [r for r in placeable
+              if world.u0[r] + clouds[r].n_units <= span]
+    n_inside = sum(r in placed for r in inside)
+    per_unit = unique_by_unit(world, res.codes, kcfg.k)
+    offsets = collections.Counter(p - world.u0[r] for r, p in placed.items())
+    modal, n_modal = offsets.most_common(1)[0] if offsets else (None, 0)
+    n_agree = len(agree)
+    seconds = {k: sums.get(k, 0.0) for k in (
+        "placement_clouds", "placement_setup", "placement_scoring",
+        "placement_greedy", "placement_artifact", "validation",
+        "validation_artifact")}
+    out = {"phase": "placement", "read_positions_sha256": digest,
+           "equal_jax_placements": (None if want_digest is None
+                                    else digest == want_digest),
+           "records": len(dec.records),
+           "unique_kmers": len(res.codes), "placed": len(placed),
+           "placed_share": len(placed) / len(dec.records),
+           "placeable": len(placeable),
+           "placeable_placed": sum(r in placed for r in placeable),
+           "contig_span_units": span, "placeable_in_span": len(inside),
+           "placeable_in_span_placed": n_inside,
+           "unique_once_by_unit_at_span_end": per_unit[
+               max(0, span - 10):span + 30].tolist(),
+           "offset_hist": dict(offsets.most_common(12)),
+           "modal_offset": modal, "modal_share": n_modal / max(len(placed), 1),
+           "validation_agree": n_agree,
+           "agree_share": n_agree / max(len(placed), 1),
+           "scoring": {"paths": sorted({c["path"] for c in calls}),
+                       "calls": len(calls), "shapes_RTVP": shapes,
+                       "ms": [c["ms"] for c in calls],
+                       "equal_other_path_on_card": True,
+                       "first_equal_cpu": True,
+                       "check_seconds": check_s},
+           "phase_seconds": seconds, "run_placement_seconds": place_s,
+           "validation_seconds": valid_s, "max_memory_allocated": peak,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(want_digest is None or digest == want_digest,
+          "read_positions.csv differs from the JAX package's placements "
+          "of this world")
+    check(modal == 0 and n_modal >= 0.95 * len(placed),
+          f"offset {modal} holds {n_modal} of {len(placed)} placed reads")
+    check(n_agree >= 0.9 * len(placed),
+          f"validation: {n_agree} of {len(placed)} placed reads agree")
+    return out
+
+
+def valid_score(cfg, score0, score1):
+    """The placement rule (stages/placement_fast.FastPlacer._valid_key)."""
+    return (score1 >= 1 and score0 >= cfg.min_unit
+            and score1 >= cfg.min_inters and score1 >= cfg.min_prop * score0)
+
+
+def once_in_array(arr, k):
+    """The k-mers that occur once in the simulated array, and where."""
+    codes, valid = kmer_codes(arr, k)
+    u, first, cnt = np.unique(codes[valid], return_index=True,
+                              return_counts=True)
+    return u[cnt == 1], np.flatnonzero(valid)[first][cnt == 1]
+
+
+def unique_by_unit(world, codes, k):
+    """Per unit of the simulated array, how many of `codes` occur in it
+    and nowhere else in the array."""
+    once, pos = once_in_array(world.arr, k)
+    return np.bincount(pos[np.isin(once, codes)] // world.unit_len,
+                       minlength=world.arr.size // world.unit_len)
 
 
 def main():
@@ -908,7 +1356,12 @@ def main():
     phase_cli(reads, recruited, dev)
     ops_launches, at_2048 = phase_myers_ops(unit, reads, recruited, batches,
                                             overlap, dev, rate)
-    phase_unique_kmers(unit, dev)
+    t = time.perf_counter()
+    world = make_world(unit, N_UNITS)
+    world_s = time.perf_counter() - t
+    boundary_dec = phase_decomposition(unit, world)
+    res, dec = phase_unique_kmers(unit, dev, world, world_s, boundary_dec)
+    phase_placement(world, dec, res, dev)
     for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kernel.setdefault("instances", {}).update(at_2048[key])
     emit({"kernels": [
