@@ -33,7 +33,9 @@ SIGNATURES = {
     "cf_myers_hw_2strand": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P],
     "cf_myers_hw_1strand": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "cf_myers_hw_banded": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cf_myers_hw_banded": [_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
 }
 
 

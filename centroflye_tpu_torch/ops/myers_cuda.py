@@ -15,9 +15,18 @@ one kernel template in instances of G = 8 or 32 lanes per
 version (`*_plain`, built on `ops/myers.myers_distance_batch`), which is
 also what the kernel is compared with on the card. Nothing falls back: on
 a CUDA tensor a wrapper launches its kernel or raises.
+
+The threshold-k wrapper runs `banded_plan`'s two passes (`BandedRun`): a
+prefix filter on the first r0 query rows, then the survivors on all m
+rows, each pass in column windows where the rows alone leave the card
+short of work. `myers_hw_v3_banded_split_plain` carries the plan out in
+plain torch for the tests.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -70,6 +79,144 @@ def myers_hw_v3_banded_plain(peq, text_t, lens, *, m: int, k: int):
     """Plain PyTorch version of the banded kernel: the unbanded distances
     thresholded at k."""
     return threshold_hw(myers_hw_v3_plain(peq, text_t, lens, m=m), m=m, k=k)
+
+
+ALPHA = 2.5         # K3's prefix: about ALPHA * (k + 1) query rows
+MIN_WINDOW = 1024   # columns a window owns, at least, unless forced
+PACKED_NONE = 0xFFFFFFFF    # end -1 as the low word of a packed minimum
+
+
+class BandedPass(NamedTuple):
+    """One pass of K3: `rows` text rows scored on the first q query
+    rows, each in `windows` column windows of L columns. Window w owns
+    columns [w*S, (w+1)*S) and is scored from w*S - overlap (at least
+    0), overlap = q + k - 1: an alignment of cost <= k spans at most
+    q + k columns, so the window owning its end scores it exactly."""
+    q: int
+    rows: int
+    L: int
+    S: int
+    overlap: int
+    windows: int
+
+    @property
+    def problems(self) -> int:
+        return self.rows * self.windows
+
+    def spans(self) -> list:
+        """[(c0, lo, hi)]: window w scores [c0, hi) and owns [lo, hi)."""
+        return [(max(0, w * self.S - self.overlap), w * self.S,
+                 min((w + 1) * self.S, self.L))
+                for w in range(self.windows)]
+
+
+class BandedPlan(NamedTuple):
+    r0: int                     # query rows of pass 1 (m: pass 1 is exact)
+    pass1: BandedPass           # every row on r0 query rows
+    pass2: BandedPass | None    # the survivors on all m; None if r0 == m
+
+
+def _banded_pass(q: int, k: int, L: int, rows: int, window) -> BandedPass:
+    if window is None:
+        # as many windows a row as keep rows x windows within SMALL_BATCH
+        # problems (the card's schedulers, `pick_group`), none under
+        # MIN_WINDOW columns
+        per_row = max(1, SMALL_BATCH // max(rows, 1))
+        S = max(MIN_WINDOW, -(-L // per_row))
+    elif isinstance(window, bool) or not isinstance(window, int) \
+            or window < 1:
+        raise ValueError(f"window={window!r}: an int >= 1 or None")
+    else:
+        S = window
+    S = max(1, min(S, L))
+    return BandedPass(q=q, rows=rows, L=L, S=S, overlap=q + k - 1,
+                      windows=max(1, -(-L // S)))
+
+
+def banded_plan(m: int, k: int, L: int, B: int, *, survivors=None,
+                alpha: float = ALPHA, prefix_rows=None,
+                window=None) -> BandedPlan:
+    """K3's decomposition for B rows of L columns at 0 <= k <= m.
+
+    Pass 1 scores every row on the first r0 query rows, r0 = min(m,
+    32 * ceil(alpha * (k + 1) / 32)) (whole words) or `prefix_rows`
+    (a multiple of 32 or m). The full distance is at least the prefix's,
+    so a row whose prefix distance exceeds k is (m, -1). Pass 2 scores
+    the `survivors` rows (B if not yet known) on all m. S is chosen from
+    these shapes alone, or forced by `window`."""
+    if not 0 <= k <= m:
+        raise ValueError(f"k={k}: 0 <= k <= m={m}")
+    if prefix_rows is None:
+        r0 = min(m, 32 * math.ceil(alpha * (k + 1) / 32))
+    elif (isinstance(prefix_rows, bool) or not isinstance(prefix_rows, int)
+          or not 1 <= prefix_rows <= m
+          or (prefix_rows % 32 and prefix_rows != m)):
+        raise ValueError(f"prefix_rows={prefix_rows!r}: a multiple of 32 "
+                         f"up to m={m}, or m")
+    else:
+        r0 = prefix_rows
+    pass1 = _banded_pass(r0, k, L, B, window)
+    pass2 = None if r0 == m else _banded_pass(
+        m, k, L, B if survivors is None else survivors, window)
+    return BandedPlan(r0, pass1, pass2)
+
+
+def _window_minima(peq, text_t, lens, p: BandedPass, rows, k: int):
+    """Plain version of one pass on `rows`: each window through
+    `myers_distance_batch` on its text slice (all windows in one call),
+    combined by the packed minimum of the windows whose distance is
+    <= k. -> ((R,) int64 packed minima, (R,) bool: some window <= k)."""
+    spans = p.spans()
+    width = max(hi - c0 for c0, _, hi in spans)
+    n_all = lens.reshape(-1).to(torch.int64).clamp(0, p.L)[rows]
+    texts, ns = [], []
+    for c0, _, hi in spans:
+        t = text_t[c0:hi][:, rows].t()
+        texts.append(torch.nn.functional.pad(t, (0, width - (hi - c0)),
+                                             value=4))
+        ns.append((n_all - c0).clamp(0, hi - c0))
+    out = myers_distance_batch(peq[:, :n_words(p.q)].contiguous(),
+                               torch.cat(texts), torch.cat(ns), m=p.q,
+                               mode="HW")
+    R = len(rows)
+    d = out["dist"].to(torch.int64).reshape(len(spans), R)
+    c0s = torch.tensor([c0 for c0, _, _ in spans]).reshape(-1, 1)
+    e = out["end"].to(torch.int64).reshape(len(spans), R)
+    e = torch.where(e >= 0, e + c0s, PACKED_NONE)
+    hit = d <= k
+    packed = torch.where(hit, (d << 32) | e, (p.q << 32) | PACKED_NONE)
+    return packed.min(dim=0).values, hit.any(dim=0)
+
+
+def myers_hw_v3_banded_split_plain(peq, text_t, lens, *, m: int, k: int,
+                                   prefix_rows=None, window=None) -> dict:
+    """`banded_plan`'s decomposition carried out in plain torch, pass by
+    pass and window by window, as the kernel runs it: the tests' model of
+    K3's plan. Same outputs as `myers_hw_v3_banded_plain`, plus
+    "survivors", pass 1's surviving rows (None when r0 == m)."""
+    k = min(k, m)
+    L, B = text_t.shape
+    plan = banded_plan(m, k, L, B, prefix_rows=prefix_rows, window=window)
+    none = (m << 32) | PACKED_NONE
+    packed = torch.full((B,), none, dtype=torch.int64)
+    survivors = None
+    if B:
+        rows = torch.arange(B)
+        mins, hit = _window_minima(peq, text_t, lens, plan.pass1, rows, k)
+        if plan.pass2 is None:
+            packed = mins
+        else:
+            survivors = rows[hit]
+            plan = banded_plan(m, k, L, B, survivors=len(survivors),
+                               prefix_rows=prefix_rows, window=window)
+            if len(survivors):
+                packed[survivors] = _window_minima(
+                    peq, text_t, lens, plan.pass2, survivors, k)[0]
+    d, e = packed >> 32, packed & PACKED_NONE
+    ok = (d <= k) & (d < m)
+    return {"dist": torch.where(ok, d, m).to(torch.int32),
+            "end": torch.where(ok, e, -1).to(torch.int32),
+            "survivors": survivors}
 
 
 def myers_hw_2strand_plain(peq_f, peq_r, text_t, lens, *, m: int):
@@ -184,28 +331,85 @@ def myers_hw_v3(peq, text_t, lens, *, m: int, group=None):
 myers_hw_v3.launches = 0
 
 
-def myers_hw_v3_banded(peq, text_t, lens, *, m: int, k: int):
+class BandedRun:
+    """One K3 call on the card (`csrc/myers_hw_banded.cu`), pass by pass.
+    `myers_hw_v3_banded` runs `pass1()` then `pass2()`; chip_smoke.py times
+    each alone. Each pass may run again on what the passes before it left:
+    pass 1 starts from scratch, and pass 2 only lowers minima it already
+    holds. Scratch and outputs come from torch.empty: the packed minima
+    (B,) int64 ((dist << 32) | end, end as uint32), the survivor list (B,)
+    and its count (1,) int32. The plan is `banded_plan`'s, pass 2's from
+    the survivor count, the one value read back between the passes."""
+
+    def __init__(self, peq, text_t, lens, *, m: int, k: int,
+                 prefix_rows=None, window=None):
+        self.W, self.L, self.B, (self.pq,) = _check_launch(
+            {"peq": peq}, text_t, lens, m)
+        self.text_t, self.lens, self.m, self.k = text_t, lens, m, min(k, m)
+        self.prefix_rows, self.window = prefix_rows, window
+        self.plan = banded_plan(m, self.k, self.L, self.B,
+                                prefix_rows=prefix_rows, window=window)
+        self.survivors = None       # pass 1's survivor count, once read
+        dev = text_t.device
+        self.out = torch.empty((2, self.B), dtype=torch.int32, device=dev)
+        self.packed = torch.empty(self.B, dtype=torch.int64, device=dev)
+        self.rows = torch.empty(self.B, dtype=torch.int32, device=dev)
+        self.count = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def _launch(self, pass_no: int, p: BandedPass):
+        dev = self.text_t.device
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.cf_myers_hw_banded(
+                self.pq.data_ptr(), self.text_t.data_ptr(),
+                self.lens.data_ptr(), self.out[0].data_ptr(),
+                self.out[1].data_ptr(), self.packed.data_ptr(),
+                self.rows.data_ptr(), self.count.data_ptr(), self.m, self.W,
+                self.L, self.B, self.k, pass_no, p.q, p.S, p.overlap,
+                p.windows, p.rows, pick_group(p.problems, 1), stream)
+        _raise_on(rc, "cf_myers_hw_banded")
+
+    def pass1(self):
+        """Every row on the first r0 query rows: the survivors (prefix
+        distance <= k) into the list, or, when r0 == m, the outputs."""
+        self._launch(1, self.plan.pass1)
+
+    def pass2(self):
+        """The survivors on all m rows, then the outputs; nothing when
+        pass 1 was exact."""
+        if self.plan.pass2 is None:
+            return
+        if self.survivors is None:
+            self.survivors = int(self.count.item())     # the one readback
+            self.plan = banded_plan(
+                self.m, self.k, self.L, self.B, survivors=self.survivors,
+                prefix_rows=self.prefix_rows, window=self.window)
+        self._launch(2, self.plan.pass2)
+
+    def result(self) -> dict:
+        return {"dist": self.out[0], "end": self.out[1]}
+
+
+def myers_hw_v3_banded(peq, text_t, lens, *, m: int, k: int,
+                       prefix_rows=None, window=None):
     """Threshold-k HW distances: `myers_hw_v3`'s (dist, end) where
     dist <= k, (m, -1) elsewhere. Same arguments, plus k >= 0. On the
-    card only the query rows inside an Ukkonen band are computed
-    (`csrc/myers_hw_banded.cu`)."""
-    if k < 0:
-        raise ValueError(f"k={k} must be >= 0")
+    card a prefix pass drops the rows whose first r0 query rows already
+    score above k, and an exact pass scores the rest in column windows
+    (`banded_plan`; `prefix_rows` and `window` force r0 and S).
+    Between the passes the survivor count is read back (4 bytes)."""
     if text_t.device.type == "cpu":
+        L, B = text_t.shape                # checks k and the overrides
+        banded_plan(m, min(k, m), L, B, prefix_rows=prefix_rows,
+                    window=window)
         return myers_hw_v3_banded_plain(peq, text_t, lens, m=m, k=k)
-    W, L, B, (pq,) = _check_launch({"peq": peq}, text_t, lens, m)
-    dev = text_t.device
-    lib = load_library()
-    out = torch.empty((2, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cf_myers_hw_banded(
-            pq.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), m, W, L, B, min(k, m),
-            stream)
-    _raise_on(rc, "cf_myers_hw_banded")
+    run = BandedRun(peq, text_t, lens, m=m, k=k, prefix_rows=prefix_rows,
+                    window=window)
+    run.pass1()
+    run.pass2()
     myers_hw_v3_banded.launches += 1
-    return {"dist": out[0], "end": out[1]}
+    return run.result()
 
 
 myers_hw_v3_banded.launches = 0

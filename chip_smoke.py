@@ -9,7 +9,10 @@ kernel in instances of G = 8 and 32 lanes per (row, strand): every
 instance is held against the plain version and timed at 128 x 10240
 (phases k1, k2) and at 2048 x 10240 (phase myers_ops, where the
 wrapper's instance is held against the plain version on exact-tier
-batch 0), beside the instance the wrapper picks. Each kernel is listed with its bound: the
+batch 0), beside the instance the wrapper picks. K3 runs two passes (a
+prefix filter, then the survivors in column windows): it is also held
+against the plain version under forced plans and timed pass by pass at
+each alpha of K3_ALPHAS. Each kernel is listed with its bound: the
 larger of its operations over the card's INT32 rate at the maximum SM
 clock and its bytes over the memory rate.
 
@@ -64,8 +67,9 @@ from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
 from centroflye_tpu_torch.ops import _build, scoring
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
-    GROUPS, myers_hw_2strand, myers_hw_2strand_plain, myers_hw_v3,
-    myers_hw_v3_banded, myers_hw_v3_plain, pick_group, threshold_hw)
+    GROUPS, BandedRun, banded_plan, myers_hw_2strand, myers_hw_2strand_plain,
+    myers_hw_v3, myers_hw_v3_banded, myers_hw_v3_plain, pick_group,
+    threshold_hw)
 from centroflye_tpu_torch.pipeline.cenx import (run_placement,
                                                 run_placement_validation,
                                                 run_unique_kmers)
@@ -88,6 +92,7 @@ THRESHOLD = 350
 BATCH_SIZE = 2048
 SEG_LEN = 10240
 K_BUDGET = 128            # rows K1 scores per fused step
+K3_ALPHAS = (2.0, 2.5, 3.0)   # K3's prefix rows per row of k + 1, timed
 CLI_READS = 300
 PALLAS = "centroflye_tpu/ops/myers_pallas_v3.py"
 K1_REPLACES = f"{PALLAS}:575"
@@ -426,22 +431,65 @@ def k3_bound(lens, k, rate):
     return myers_bound(lens, -(-(k + 1) // 32), 1, rate)
 
 
+def k3_plans(m, L):
+    """Forced K3 plans (prefix_rows, window): the wrapper's own, pass 1
+    only (r0 = m), a prefix r0 < m, and windows in both passes."""
+    r0 = 64 if m > 64 else m
+    S = max(64, L // 7)
+    return [(None, None), (m, None), (r0, None), (m, S), (r0, S)]
+
+
+def k3_passes(peq, text_t, lens, m, k, want, reps):
+    """K3's plan on one batch at each alpha: r0, S and windows of each
+    pass, the survivors, the problems, each pass's ms alone and the
+    wrapper's (CUDA events). Every run's outputs must equal `want`."""
+    L, B = text_t.shape
+    out = {}
+    for alpha in K3_ALPHAS:
+        r0 = banded_plan(m, k, L, B, alpha=alpha).r0
+        run = BandedRun(peq, text_t, lens, m=m, k=k, prefix_rows=r0)
+        run.pass1()
+        run.pass2()
+        pass_ms = [time_cuda(run.pass1, reps)]
+        if run.plan.pass2 is not None:
+            pass_ms.append(time_cuda(run.pass2, reps))
+        check(max_abs_err(run.result(), want) == 0,
+              f"K3 pass by pass != plain at alpha {alpha}")
+        plan = run.plan
+        passes = [p for p in (plan.pass1, plan.pass2) if p is not None]
+        out[alpha] = {
+            "r0": plan.r0, "survivors": run.survivors,
+            "S": [p.S for p in passes], "windows": [p.windows for p in passes],
+            "problems": [p.problems for p in passes], "pass_ms": pass_ms,
+            "ms": time_cuda(lambda: myers_hw_v3_banded(
+                peq, text_t, lens, m=m, k=k, prefix_rows=r0), reps)}
+    return out
+
+
 def phase_k3(unit_codes, dev, k1_ms, k2_ms, rate):
     """K3 at k = THRESHOLD against its plain version on its own
-    128 x 10240 DXZ1 batch (one plain run per strand), then small cases
-    at m = 90 (one band block), 300 and 1500 (two blocks), k in {0, 20,
-    m}, against the plain version on the CPU."""
+    128 x 10240 DXZ1 batch (one plain run per strand), with the
+    wrapper's plan and forced ones (`k3_plans`), then small cases at m =
+    90, 300 and 1500, k in {0, 20, m}, every forced plan, and random rows
+    that leave pass 1 no survivor, against the plain version on the CPU.
+    Prints K3's plan, survivors and ms per pass at each alpha, beside K1's
+    and K2's ms on the same batch."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(3)
     m = len(unit_codes)
     pf, pr, text_t, lens = k3_case(rng, unit_codes, SEG_LEN, K_BUDGET, dev)
-    err, plain_ms, in_band = 0, [], []
+    err, plain_ms, in_band, wants = 0, [], [], []
     for peq in (pf, pr):
         got = myers_hw_v3_banded(peq, text_t, lens, m=m, k=THRESHOLD)
         want, ms = timed_plain(lambda: threshold_hw(
             myers_hw_v3_plain(peq, text_t, lens, m=m), m=m, k=THRESHOLD))
         err = max(err, max_abs_err(got, want))
+        for prefix_rows, window in k3_plans(m, SEG_LEN):
+            err = max(err, max_abs_err(myers_hw_v3_banded(
+                peq, text_t, lens, m=m, k=THRESHOLD, prefix_rows=prefix_rows,
+                window=window), want))
         plain_ms.append(ms)
+        wants.append(want)
         in_band.append(int((got["dist"] <= THRESHOLD).sum()))
     check(err == 0, f"K3 != plain at {K_BUDGET}x{SEG_LEN}, k={THRESHOLD}")
     check(min(in_band) >= 8 and max(in_band) <= K_BUDGET - 8,
@@ -451,8 +499,9 @@ def phase_k3(unit_codes, dev, k1_ms, k2_ms, rate):
     k1_here = time_cuda(lambda: myers_hw_2strand(pf, pr, text_t, lens, m=m),
                         reps=20)
     k2_here = time_cuda(lambda: myers_hw_v3(pf, text_t, lens, m=m), reps=20)
+    passes = k3_passes(pf, text_t, lens, m, THRESHOLD, wants[0], reps=20)
 
-    err_s = 0
+    err_s, forced = 0, 0
     for small_m, L in ((90, 256), (300, 512), (1500, 3000)):
         codes = rng.integers(0, 4, small_m).astype(np.int8)
         args = k3_case(rng, codes, L, 128, dev)
@@ -460,9 +509,28 @@ def phase_k3(unit_codes, dev, k1_ms, k2_ms, rate):
         for peq, cpu_peq in ((args[0], cpu_args[0]), (args[1], cpu_args[1])):
             unbanded = myers_hw_v3_plain(cpu_peq, *cpu_args[2:], m=small_m)
             for k in (0, 20, small_m):
+                want = threshold_hw(unbanded, m=small_m, k=k)
                 got = myers_hw_v3_banded(peq, *args[2:], m=small_m, k=k)
-                err_s = max(err_s, max_abs_err(
-                    got, threshold_hw(unbanded, m=small_m, k=k)))
+                err_s = max(err_s, max_abs_err(got, want))
+                for prefix_rows, window in k3_plans(small_m, L):
+                    err_s = max(err_s, max_abs_err(myers_hw_v3_banded(
+                        peq, *args[2:], m=small_m, k=k,
+                        prefix_rows=prefix_rows, window=window), want))
+                    forced += 1
+    # random rows: no 64-row prefix within k = 0, so no pass-2 problem
+    rand = rng.integers(0, 4, (256, 3000)).astype(np.int8)
+    rand_args = (args[0], torch.from_numpy(rand.T.copy()).to(dev),
+                 torch.full((256,), 3000, dtype=torch.int32, device=dev))
+    want = myers_hw_v3_banded(*(a.cpu() for a in rand_args), m=1500, k=0)
+    zero = {}
+    for window in (None, 200):
+        run = BandedRun(*rand_args, m=1500, k=0, prefix_rows=64,
+                        window=window)
+        run.pass1()
+        run.pass2()
+        zero[str(window)] = run.survivors
+        err_s = max(err_s, max_abs_err(run.result(), want))
+    check(set(zero.values()) == {0}, f"random rows survived pass 1: {zero}")
     check(err_s == 0, "K3 != CPU plain at m = 90, 300 or 1500")
     bound_ms, bound_by = k3_bound(lens, THRESHOLD, rate)
     emit({"phase": "k3", "shape": [K_BUDGET, SEG_LEN], "m": m,
@@ -471,10 +539,15 @@ def phase_k3(unit_codes, dev, k1_ms, k2_ms, rate):
           "k2_ms_same_batch": k2_here,
           "k1_ms_same_batch": k1_here, "k2_ms_k1_batch": k2_ms,
           "k1_ms_k1_batch": k1_ms, "plain_ms": plain_ms,
+          "passes_by_alpha": passes, "forced_plans_small": forced,
+          "zero_survivors": zero,
           "small_max_abs_err": err_s, "seconds": time.perf_counter() - t0})
     return {"max_abs_err": max(err, err_s), "ms": k3_ms,
             "plain_ms": plain_ms[0], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "instances": {f"{K_BUDGET}x{SEG_LEN}": {
+                "ms": k3_ms, "bound_ms": bound_ms, "k2_ms": k2_here,
+                "passes_by_alpha": passes}}}
 
 
 def phase_main_path(unit, dev):
@@ -601,6 +674,9 @@ def phase_myers_ops(unit, reads, recruited, batches, overlap, dev, rate):
         plain_in_band += int((want["dist"] <= THRESHOLD).sum())
     check(plain_err == 0, "K1 or K2 != plain on exact-tier batch 0")
     check(plain_in_band > 0, "exact-tier batch 0 holds no row within k")
+    k3_want = threshold_hw({"dist": k1["dist_f"], "end": k1["end_f"]}, m=m,
+                           k=THRESHOLD)
+    k3_passes0 = k3_passes(pf, text0, lens0, m, THRESHOLD, k3_want, reps=5)
 
     err = 0
     for codes, lens in batches:
@@ -645,6 +721,7 @@ def phase_myers_ops(unit, reads, recruited, batches, overlap, dev, rate):
           "ms_at_2048_rows_batch0": ms, "ms_by_group_batch0": by_group,
           "bound_ms_batch0": bounds, "group": groups,
           "batch0_sum_lens": int(lens0.sum()),
+          "k3_passes_by_alpha_batch0": k3_passes0,
           "seconds": time.perf_counter() - t0})
     shape = f"{BATCH_SIZE}x{SEG_LEN}"
     plain = {"k1": plain_ms["f"] + plain_ms["r"], "k2": plain_ms["f"]}
@@ -652,7 +729,9 @@ def phase_myers_ops(unit, reads, recruited, batches, overlap, dev, rate):
                              "plain_ms": plain[k], "bound_ms": bounds[k],
                              "ms_by_group": by_group[k]}}
                  for k in ("k1", "k2")}
-    instances["k3"] = {shape: {"ms": ms["k3_ms"], "bound_ms": bounds["k3"]}}
+    instances["k3"] = {shape: {"ms": ms["k3_ms"], "bound_ms": bounds["k3"],
+                               "plain_ms": plain["k2"], "k2_ms": ms["k2_ms"],
+                               "passes_by_alpha": k3_passes0}}
     return launches, instances
 
 
