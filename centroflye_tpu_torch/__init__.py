@@ -5,21 +5,35 @@ reference every module here is tested against. This package imports
 torch and numpy only: never jax, never the JAX package. CUDA kernels
 live in `csrc/` and are built with nvcc on first use (`ops/_build.py`).
 
-Ported so far: stage 1 of cenX, read recruitment
-(`stages/recruitment.py`), and the op modules under it (Myers, k-mer
-packing and lookup, seed filter, fused step), with a Hopper kernel for
-each of the JAX package's Pallas kernels: two-strand and one-strand HW
-Myers in `csrc/myers_hw_2strand.cu`, threshold-k banded HW Myers in
-`csrc/myers_hw_banded.cu`. Then stages 2-4 of cenX as functions of
-`pipeline/cenx.py`: unit decomposition (`run_decomposition` over
-`stages/unit_decomposition.py` and `stages/ncrf_compat.py`, host numpy
-with the port's own copy of the JAX package's native Myers engine in
-`native/`, built with g++ on first use); rare k-mers and the
-distance-graph unique k-mers (`run_unique_kmers` over
-`stages/rare_kmers.py`, `stages/kmer_cloud.py` and
-`stages/distance_graph.py`); greedy placement and its validation
-(`run_placement`, `run_placement_validation` over `ops/scoring.py`,
-`stages/cloud_contig.py`, `stages/placement_fast.py` and
-`stages/read_placer.py`). Their device work is plain PyTorch: the JAX
-package has no Pallas kernel there.
+Ported so far: the whole cenX pipeline, `pipeline/cenx.CenXPipeline`
+(and its CLI, `python -m centroflye_tpu_torch.pipeline.cenx`), from a
+reads file to final_assembly.fasta, its artifacts byte for byte the JAX
+package's:
+- stage 1, read recruitment (`stages/recruitment.py`), and the op
+  modules under it (Myers, k-mer packing and lookup, seed filter, fused
+  step), with a Hopper kernel for each of the JAX package's Pallas
+  kernels: two-strand and one-strand HW Myers in
+  `csrc/myers_hw_2strand.cu`, threshold-k banded HW Myers in
+  `csrc/myers_hw_banded.cu`;
+- stage 2, unit decomposition (`stages/unit_decomposition.py`,
+  `stages/ncrf_compat.py`), host numpy with the port's own copy of the
+  JAX package's native Myers engine in `native/`, built with g++ on
+  first use;
+- stage 3, rare k-mers and the distance-graph unique k-mers
+  (`stages/rare_kmers.py`, `stages/kmer_cloud.py`,
+  `stages/distance_graph.py`);
+- stage 4, greedy placement and its validation (`ops/scoring.py`,
+  `stages/cloud_contig.py`, `stages/placement_fast.py`,
+  `stages/read_placer.py`);
+- stage 5, the consensus unit (`stages/consensus_unit.py`: a device
+  k-mer count, host graph surgery, `ops/align_path.py`);
+- stage 6, per-position polishing and the final polish
+  (`stages/consensus.py`, `stages/polisher.py`,
+  `stages/final_polish.py`), host numpy and the native engine;
+- `config.CentroFlyeConfig` (its JSON is the JAX package's),
+  `utils/bio.py`, `utils/logging_utils.py` (metrics.json).
+The device work of stages 3-5 is plain PyTorch: the JAX package has no
+Pallas kernel there. Not ported yet: the cen6 monomer pipeline, the
+multi-device paths, the native reader (`seqio.cpp`) and
+`stages/unit_extraction.py`.
 """

@@ -1,10 +1,13 @@
 """Typed configuration of the port: the same fields and defaults as
-the JAX package's `config.py`, for the stages ported so far (read
-recruitment, unit decomposition, rare and unique k-mers, placement)."""
+the JAX package's `config.py`. `CentroFlyeConfig` carries the whole
+state across: a JSON that the JAX package's `to_json` writes loads here
+into equal fields, and this `to_json` gives the same text."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +97,144 @@ class PlacerConfig:
     min_prop: int = 3              # score[1] >= min_prop * score[0]
     prefix_threshold: int = 50000  # read classification large_threshold
     small_threshold: int = 1000    # read classification small_threshold
+
+
+@dataclasses.dataclass(frozen=True)
+class ConsensusUnitConfig:
+    """Consensus unit ("unit*") reconstruction
+    (reference better_consensus_unit_reconstruction.py:140-153)."""
+
+    k: int = 30                    # cons-k-mer-len
+    top_factor: int = 3            # keep 3x|unit kmers| most frequent k-mers
+
+
+@dataclasses.dataclass(frozen=True)
+class PolisherConfig:
+    """ELTR polishing (reference eltr_polisher.py:168-180 defaults). The
+    external Flye polisher is replaced by the in-repo consensus polisher
+    (stages/consensus)."""
+
+    num_iters: int = 4
+    min_pos: int = 0
+    max_pos: float = math.inf
+    error_mode: str = "nano"
+
+
+@dataclasses.dataclass(frozen=True)
+class MonoConfig:
+    """centroFlyeMono / cen6 pipeline (reference scripts/centroFlyeMono.py:32-51
+    and sd_parser.py / mono_error_correction.py defaults). Kept for field
+    parity with the JAX config: the port has no cen6 pipeline yet."""
+
+    min_k: int = 100
+    max_k: int = 400
+    min_mult: int = 5
+    polish_n_iter: int = 2
+    max_gap: int = 100             # SD_Report max inter-monomer nucleotide gap
+    gap_symb: str = "?"
+    max_lowercase: float = 0.1     # filter_lowercaserich_reads
+    trim_max_gap: float = 0.2      # trim_reads moving-average threshold
+    trim_ma_window: int = 30
+    cut_max_gap: float = 0.05      # cut_gaprich_reads
+    cut_min_length: int = 100
+    hor_k: int = 3                 # correct_gaps HOR inference k
+    hor_min_mult: int = 5000
+    hor_max_gap: float = 0.3
+    max_uniq_cov: int = 60         # DeBruijnGraph unique-edge coloring
+    min_uniq_len: int = 1000
+    min_connections: int = 2       # scaffolding support
+    # evidence-based scaffold joining (the automated counterpart of the
+    # reference's hard-coded cen6 join, centroFlyeMono.py:84-87): merge
+    # scaffolds whose symbols share an exact >= join_min_overlap-monomer
+    # suffix-prefix overlap and whose merged run maps to one valid graph
+    # path (mono/scaffolding.merge_scaffolds_with_paths)
+    auto_join: bool = True
+    join_min_overlap: int = 50
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Multi-device execution. Kept for field parity with the JAX config
+    (there, a jax.sharding.Mesh): the port runs on one device."""
+
+    # Name of the data-parallel mesh axis over which read batches are sharded.
+    data_axis: str = "reads"
+    # If 0, use all local devices.
+    n_devices: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CentroFlyeConfig:
+    """Master configuration (union of all stage views, mirroring the master
+    driver reference centroFlye.py:13-134)."""
+
+    coverage: int = 32
+    threads: int = 0               # host-side worker threads (0 = auto)
+    recruitment: RecruitmentConfig = dataclasses.field(
+        default_factory=RecruitmentConfig)
+    decomposition: UnitDecompositionConfig = dataclasses.field(
+        default_factory=UnitDecompositionConfig)
+    kmer_recruitment: KmerRecruitmentConfig = dataclasses.field(
+        default_factory=KmerRecruitmentConfig)
+    placer: PlacerConfig = dataclasses.field(default_factory=PlacerConfig)
+    consensus_unit: ConsensusUnitConfig = dataclasses.field(
+        default_factory=ConsensusUnitConfig)
+    polisher: PolisherConfig = dataclasses.field(
+        default_factory=PolisherConfig)
+    mono: MonoConfig = dataclasses.field(default_factory=MonoConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
+
+    @classmethod
+    def cen6(cls, coverage: int = 120) -> "CentroFlyeConfig":
+        """Preset matching run_all_cen6.sh (threshold 550)."""
+        return cls(coverage=coverage,
+                   recruitment=RecruitmentConfig(threshold=550))
+
+    def replace(self, **kwargs) -> "CentroFlyeConfig":
+        return dataclasses.replace(self, **kwargs)
+
+    def to_json(self) -> str:
+        def default(o):
+            if dataclasses.is_dataclass(o):
+                return dataclasses.asdict(o)
+            if o == math.inf:
+                return "inf"
+            raise TypeError(o)
+        return json.dumps(dataclasses.asdict(self), indent=2, default=default)
+
+    @classmethod
+    def from_json(cls, text: str) -> "CentroFlyeConfig":
+        raw = json.loads(text)
+
+        def build(tp, d):
+            fields = {f.name: f for f in dataclasses.fields(tp)}
+            kwargs = {}
+            for key, value in d.items():
+                if key not in fields:
+                    raise KeyError(f"unknown config key: {key}")
+                sub = _SUBCONFIGS.get(key)
+                if sub is not None and isinstance(value, dict):
+                    kwargs[key] = build(sub, value)
+                elif value == "inf":
+                    kwargs[key] = math.inf
+                else:
+                    kwargs[key] = value
+            return tp(**kwargs)
+
+        return build(cls, raw)
+
+
+_SUBCONFIGS = {
+    "recruitment": RecruitmentConfig,
+    "decomposition": UnitDecompositionConfig,
+    "kmer_recruitment": KmerRecruitmentConfig,
+    "placer": PlacerConfig,
+    "consensus_unit": ConsensusUnitConfig,
+    "polisher": PolisherConfig,
+    "mono": MonoConfig,
+    "parallel": ParallelConfig,
+}
 
 
 # The JAX package's CentroFlyeConfig.coverage default: the read coverage

@@ -64,6 +64,17 @@ def revcomp_str(seq: str) -> str:
     return "".join(out)
 
 
+def compress_homopolymer(seq: str) -> str:
+    """Collapse runs of identical characters (reference utils/bio.py:60-61)."""
+    if not seq:
+        return seq
+    out = [seq[0]]
+    for ch in seq[1:]:
+        if ch != out[-1]:
+            out.append(ch)
+    return "".join(out)
+
+
 def kmer_codes(codes: np.ndarray, k: int, *, length: int | None = None):
     """All k-mer 2-bit codes of a code array (host, numpy).
 

@@ -92,6 +92,11 @@ def iter_seqs(filename: str) -> Iterator[Tuple[str, str]]:
                 yield name, "".join(parts)
 
 
+def read_seqs(filename: str) -> Dict[str, str]:
+    """All records as {id: seq} (reference utils/bio.py:16-24)."""
+    return {name: seq for name, seq in iter_seqs(filename)}
+
+
 def read_seq(filename: str) -> str:
     """First record's sequence."""
     for _, seq in iter_seqs(filename):

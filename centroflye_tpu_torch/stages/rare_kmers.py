@@ -121,6 +121,72 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _pow2(x):
+    return 1 << max(8, int(np.ceil(np.log2(max(int(x), 2)))))
+
+
+class MergeForest:
+    """Count tables of a sweep's batches (sorted, KEY_SENTINEL-padded,
+    every capacity a power of two), merged on the device by a binary
+    counter: a table of capacity c waits in slot c until a second one
+    arrives, and the pair merges on up. Per-batch tables need only their
+    own window count, and the total merge cost is O(keys * log batches)
+    instead of O(batches * global capacity). Every table is cut to
+    pow2(its distinct count) on the way in, so capacities track the
+    realized distinct count and not the sum of their inputs' capacities.
+    Tables stay on the device; only run counts (scalars) reach the
+    host."""
+
+    def __init__(self, n_windows: int, capacity: int | None = None):
+        # distinct k-mers are bounded by the windows, so pow2(n_windows)
+        # is always enough
+        self.max_capacity = capacity or _pow2(min(n_windows, 1 << 28))
+        self.slots: Dict[int, tuple] = {}
+
+    def count(self, count_fn, n_windows: int):
+        """Adds one batch of n_windows windows: count_fn(capacity) ->
+        (keys, values, n) counts it into a table, again at twice the
+        capacity while its n distinct keys overflow it."""
+        cap = min(_pow2(n_windows), self.max_capacity)
+        while True:
+            keys, values, n = count_fn(cap)
+            if cap >= n_windows or int(n) <= cap:
+                break
+            cap *= 2
+        t, cap = self._shrink((keys, values, int(n)), cap)
+        while cap in self.slots:
+            t, cap = self._merge(self.slots.pop(cap), cap, t, cap)
+        self.slots[cap] = t
+
+    def fold(self):
+        """The merged table (keys, values, n), or None without a table."""
+        acc, acc_cap = None, 0
+        for cap in sorted(self.slots):
+            if acc is None:
+                acc, acc_cap = self.slots[cap], cap
+            else:
+                acc, acc_cap = self._merge(acc, acc_cap, self.slots[cap], cap)
+        return acc
+
+    @staticmethod
+    def _shrink(t, cap):
+        new_cap = _pow2(max(t[2], 1))
+        if new_cap >= cap:
+            return t, cap
+        return (t[0][:new_cap], t[1][:new_cap], t[2]), new_cap
+
+    def _merge(self, ta, cap_a, tb, cap_b):
+        out = min(_pow2(cap_a + cap_b), self.max_capacity)
+        while True:
+            m = merge_count_tables(ta[0], ta[1], tb[0], tb[1],
+                                   capacity=out)
+            n = int(m[2])
+            if out >= cap_a + cap_b or n <= out:
+                return self._shrink((m[0], m[1], n), out)
+            out *= 2
+            self.max_capacity = max(self.max_capacity, out)
+
+
 def read_kmer_table(
     seqs: Sequence[str],
     k: int,
@@ -148,51 +214,8 @@ def read_kmer_table(
     if not len(seqs):
         return (np.empty(0, np.uint64), np.empty(0, np.int64),
                 np.empty(0, np.int64))
-    total_windows = sum(max(0, len(s) - k + 1) for s in seqs)
-    # distinct k-mers are bounded by total windows, so the
-    # exact-sufficient global capacity is next_pow2(total_windows) — but
-    # per-BATCH tables only need their own window count, and a
-    # binary-counter merge forest keeps total merge cost
-    # O(keys * log batches) instead of O(batches * global_capacity),
-    # with every size a power of two
-    max_capacity = capacity or (1 << max(
-        8, int(np.ceil(np.log2(max(min(total_windows, 1 << 28), 2))))))
-
-    def _pow2(x):
-        return 1 << max(8, int(np.ceil(np.log2(max(int(x), 2)))))
-
-    forest: Dict[int, tuple] = {}
-
-    def shrink(t, n, cap):
-        """Slice a sorted KEY_SENTINEL-padded table down to pow2(n): table
-        capacities must track the REALIZED distinct count, not the sum of
-        input capacities — without this, capacities accumulate up the
-        merge chain to pow2(total windows)."""
-        new_cap = max(256, _pow2(max(n, 1)))
-        if new_cap >= cap:
-            return t, cap
-        return (t[0][:new_cap], t[1][:new_cap], t[2]), new_cap
-
-    def merge_pair(ta, cap_a, tb, cap_b):
-        nonlocal max_capacity
-        out = min(_pow2(cap_a + cap_b), max_capacity)
-        while True:
-            m = merge_count_tables(ta[0], ta[1], tb[0], tb[1],
-                                   capacity=out)
-            n = int(m[2])
-            if out >= cap_a + cap_b or n <= out:
-                t, cap = shrink((m[0], m[1], n), n, out)
-                return t, cap
-            out *= 2
-            if out > max_capacity:
-                max_capacity = out
-
-    def insert(t, cap):
-        t, cap = shrink(t, t[2], cap)
-        while cap in forest:
-            other = forest.pop(cap)
-            t, cap = merge_pair(other, cap, t, cap)
-        forest[cap] = t
+    forest = MergeForest(sum(max(0, len(s) - k + 1) for s in seqs),
+                         capacity)
 
     def upload(codes, lens):
         return (torch.from_numpy(codes).to(device),
@@ -222,28 +245,18 @@ def read_kmer_table(
         else:
             keys = _kmer_keys(codes_d, lens_d, k)
         rid = torch.from_numpy(ids).to(device)[:, None].expand(keys.shape)
-        cap_b = min(_pow2(win_b), max_capacity)
-        while True:
-            ukeys, n_reads, n_multi, n = count_read_kmer_stats(
-                keys, rid, capacity=cap_b)
-            if cap_b >= win_b or int(n) <= cap_b:
-                break
-            cap_b *= 2
-        # tables stay ON DEVICE across the sweep — only run-count scalars
-        # sync
-        insert((ukeys, torch.stack([n_reads, n_multi], dim=1), int(n)),
-               cap_b)
 
-    if not forest:
+        def count(cap, keys=keys, rid=rid):
+            ukeys, n_reads, n_multi, n = count_read_kmer_stats(
+                keys, rid, capacity=cap)
+            return ukeys, torch.stack([n_reads, n_multi], dim=1), n
+        forest.count(count, win_b)
+
+    t_count = time.perf_counter()
+    acc = forest.fold()
+    if acc is None:
         return (np.empty(0, np.uint64), np.empty(0, np.int64),
                 np.empty(0, np.int64))
-    t_count = time.perf_counter()
-    acc, acc_cap = None, 0
-    for cap in sorted(forest):
-        if acc is None:
-            acc, acc_cap = forest[cap], cap
-        else:
-            acc, acc_cap = merge_pair(acc, acc_cap, forest[cap], cap)
     codes_u64, counts = table_to_numpy(*acc)
     t_end = time.perf_counter()
     logger.info(

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from centroflye_tpu_torch.config import RecruitmentConfig
-from centroflye_tpu_torch.io.encoding import PAD, encode, revcomp
+from centroflye_tpu_torch.io.encoding import PAD, decode, encode, revcomp
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import recruit_distances
 
@@ -364,8 +364,10 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
                  seg_len: int = 32768, device="cuda") -> int:
     """File-level entry point with the CLI contract of the reference rr binary
     (rr.cpp:43: unit.fasta reads.fasta[.gz] output.fasta threshold).
-    Recruited reads stream to `output_fn` in input order. Returns their
-    number."""
+    Recruited reads stream to `output_fn` in input order, each in the
+    form the JAX package's native reader gives it: its base codes
+    decoded, so upper case with every letter but ACGT written as N.
+    Returns their number."""
     from centroflye_tpu_torch.io.fasta import atomic_write, iter_seqs, read_seq
 
     unit = read_seq(unit_fn)
@@ -387,7 +389,7 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
         for res in engine.run(reads_iter()):
             seq = pending_seqs.popleft()
             if res.recruited:
-                out.write(f">{res.r_id}\n{seq}\n")
+                out.write(f">{res.r_id}\n{decode(encode(seq))}\n")
                 n_recruited += 1
     return n_recruited
 

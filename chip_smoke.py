@@ -37,12 +37,29 @@ k-mers: every bulk-scoring call must equal the other scorer on the card
 package's (its digest, tools/placement_vs_jax.py), and the placed reads
 must sit at their true unit and re-map there.
 
+Then the whole cenX pipeline, `CenXPipeline.run`, through the port's
+entry point. Phase cenx_fresh runs it with nothing resumed at
+tests/test_e2e_cenx.py's small world (a 150-bp unit x 30), on the card
+and on the CPU: every artifact must be equal, and a resumed run on the
+card must return the same assembly. Phase cenx_pipeline runs it at the
+full world from a reads file of about 275 Mbp (the world's records, its
+reads over the array's ends, and main_path's background reads): stage 1
+recruits on the card (K1), stages 2-4 resume from the artifacts that
+phases unique_kmers and placement left, stages 5 (the consensus unit,
+its k-mer count on the card) and 6 (per-position polishing, the final
+polish) run. The recruited set must be every world read and no
+background read, equal to the exact tier's; unit* within 5 edits of
+DXZ1; the assembly within 0.5% of the simulated array over its span;
+final_assembly.fasta and unit_star.fasta the JAX package's files
+(ASSEMBLY_DIGEST, UNIT_STAR_DIGEST, tools/cenx_vs_jax.py).
+
     python3 chip_smoke.py
 
 Each phase prints one JSON line with its seconds. Any failed check exits
 non-zero. Needs CUDA: without a card it fails and prints no result. The
 last line is {"ok": true, "device": {...}}."""
 
+import ast
 import collections
 import contextlib
 import dataclasses
@@ -58,24 +75,31 @@ import numpy as np
 import torch
 
 from centroflye_tpu_torch import native
-from centroflye_tpu_torch.config import (COVERAGE, KmerRecruitmentConfig,
-                                         PlacerConfig, RecruitmentConfig,
+from centroflye_tpu_torch.config import (COVERAGE, CentroFlyeConfig,
+                                         ConsensusUnitConfig,
+                                         KmerRecruitmentConfig, PlacerConfig,
+                                         PolisherConfig, RecruitmentConfig,
                                          UnitDecompositionConfig)
 from centroflye_tpu_torch.io.encoding import (decode, encode, kmer_codes,
-                                              revcomp, string_to_kmer_code)
-from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
-from centroflye_tpu_torch.ops import _build, scoring
+                                              revcomp, revcomp_str,
+                                              string_to_kmer_code)
+from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq, write_seqs
+from centroflye_tpu_torch.ops import _build, fused_recruit, scoring
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
     GROUPS, BandedRun, banded_plan, myers_hw_2strand, myers_hw_2strand_plain,
     myers_hw_v3, myers_hw_v3_banded, myers_hw_v3_plain, pick_group,
     threshold_hw)
-from centroflye_tpu_torch.pipeline.cenx import (run_placement,
+from centroflye_tpu_torch.pipeline.cenx import (CenXPipeline,
+                                                run_placement,
                                                 run_placement_validation,
-                                                run_unique_kmers)
+                                                run_unique_kmers,
+                                                save_decomposition)
 from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
-                                                    gen_random_seq)
+                                                    gen_random_seq,
+                                                    simulate_tandem_repeat)
 from centroflye_tpu_torch.stages.distance_graph import recruit_unique_kmers
+from centroflye_tpu_torch.stages.polisher import _edit_distance, map_pos2read
 from centroflye_tpu_torch.stages.read_placer import read_positions_file
 from centroflye_tpu_torch.stages.unit_decomposition import (DecompRecord,
                                                             Decomposition,
@@ -93,6 +117,8 @@ BATCH_SIZE = 2048
 SEG_LEN = 10240
 K_BUDGET = 128            # rows K1 scores per fused step
 K3_ALPHAS = (2.0, 2.5, 3.0)   # K3's prefix rows per row of k + 1, timed
+PIPELINE_SEG_LEN = 32768  # recruit_file's segment length, the pipeline's
+FUSED_EVERY = 4           # every 4th fused step's K1 inputs kept for the check
 CLI_READS = 300
 PALLAS = "centroflye_tpu/ops/myers_pallas_v3.py"
 K1_REPLACES = f"{PALLAS}:575"
@@ -133,6 +159,70 @@ FLANK_BP = 200_000        # each end's flank (the JAX demo's)
 PLACEMENT_DIGEST = (
     "23748246ac3eb7c76415a459e7fb08a13b7a5c2b6b902af2553e197c5f211841")
 DECOMP_SAMPLE = 500       # world records decomposed again in stage 2
+# sha256 of final_assembly.fasta and cons_unit/unit_star.fasta as the JAX
+# package writes them for the full world's pipeline, resumed after stage 4
+# (on the card's machine): `python3 tools/cenx_vs_jax.py`
+ASSEMBLY_DIGEST = (
+    "1ff608a295ecf6e0e202d2798eb7be0f25d8bf0ecbf2d5313ae09fd354941170")
+UNIT_STAR_DIGEST = (
+    "72902ef4392863cc47a07c1db44202a5704d28cec330a7264e142520d3a36938")
+# phase cenx_fresh: the world and config of tests/test_e2e_cenx.py
+FRESH_SEED = 23
+FRESH_UNIT = 150
+FRESH_MULT = 30
+FRESH_FLANK = 4000
+FRESH_NOISE = 0.02
+
+
+def fresh_world():
+    """tests/test_e2e_cenx.py's world, from the port's simulate: a random
+    150-bp unit x 30 at 3% divergence between 4 kb flanks; three prefix
+    reads, 2.2 kb internal reads every 500 bp (every third reverse
+    complemented), two suffix reads and four background reads, all with
+    2% noise. Returns (unit, the simulated repeat, {read id: seq})."""
+    rng = np.random.default_rng(FRESH_SEED)
+    unit = gen_random_seq(rng, FRESH_UNIT)
+    sim = simulate_tandem_repeat(rng, unit, mult=FRESH_MULT, div_rate=0.03,
+                                 flank_len=FRESH_FLANK)
+    g = sim.flanked_tr
+    tr_start, tr_end = FRESH_FLANK, FRESH_FLANK + len(sim.tr)
+    reads = {}
+    for pi, left in enumerate([3500, 3000, 2600]):
+        reads[f"pre{pi}"] = g[tr_start - left:tr_start + 10 * FRESH_UNIT]
+    i, start = 0, tr_start + 100
+    while start + 2200 < tr_end - 100:
+        seq = g[start:start + 2200]
+        reads[f"int{i:02d}"] = revcomp_str(seq) if i % 3 == 1 else seq
+        start += 500
+        i += 1
+    for si, right in enumerate([3500, 3000]):
+        reads[f"suf{si}"] = g[tr_end - 10 * FRESH_UNIT:tr_end + right]
+    for bi in range(4):
+        reads[f"bg{bi}"] = gen_random_seq(rng, 3000)
+    reads = {r: add_read_noise(rng, s, FRESH_NOISE) for r, s in reads.items()}
+    return unit, sim, reads
+
+
+def fresh_config():
+    """tests/test_e2e_cenx.py's CentroFlyeConfig."""
+    return CentroFlyeConfig(
+        coverage=4,
+        recruitment=RecruitmentConfig(threshold=int(FRESH_UNIT * 0.25),
+                                      batch_size=16),
+        decomposition=UnitDecompositionConfig(min_record_len=800),
+        kmer_recruitment=KmerRecruitmentConfig(
+            k=13, min_distance=1, max_distance=6, min_coverage=2,
+            bottom=0.0, top=1e9),
+        placer=PlacerConfig(min_cloud_kmer_freq=2, min_kmer_mult=2,
+                            min_unit=2, min_inters=5,
+                            prefix_threshold=1800, small_threshold=1000),
+        consensus_unit=ConsensusUnitConfig(k=21),
+        polisher=PolisherConfig(num_iters=2))
+
+
+def sha256_of(fn):
+    with open(fn, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def emit(obj):
@@ -982,7 +1072,7 @@ def merge_decompositions(a, b):
                          a.discarded + b.discarded)
 
 
-def phase_unique_kmers(unit, dev, world, world_s, boundary_dec):
+def phase_unique_kmers(unit, dev, world, world_s, boundary_dec, outdir):
     """Stage 3 (rare k-mers, then the distance-graph unique k-mers) through
     `run_unique_kmers`. First the cut world (its records only) on the
     card and on the CPU: the rare codes, the unique codes and the edges
@@ -990,8 +1080,10 @@ def phase_unique_kmers(unit, dev, world, world_s, boundary_dec):
     world's records with the decomposed boundary reads' on the card.
     Both print their sizes and the strips each sweep path took, and both
     hold the card's edges against `truth_sample`; the full world also
-    prints its phase seconds and peak device memory. Returns the full
-    world's result and its Decomposition, for phase placement."""
+    prints its phase seconds and peak device memory. The full world's
+    artifacts, and the Decomposition it ran on (decomposition.json), stay
+    in `outdir`, where phase cenx_pipeline resumes from them. Returns the
+    full world's result and its Decomposition, for phase placement."""
     t0 = time.perf_counter()
     cfg = KmerRecruitmentConfig()
     log = PhaseLog()
@@ -1057,14 +1149,14 @@ def phase_unique_kmers(unit, dev, world, world_s, boundary_dec):
 
     arr, read_bp = world.arr, world.read_bp
     dec = merge_decompositions(world.dec, boundary_dec)
+    save_decomposition(dec, os.path.join(outdir, "decomposition.json"))
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp:
-        res, run_s, sums = run(dec, dev, tmp)
-        peak = torch.cuda.max_memory_allocated()
-        with open(os.path.join(tmp, "recruited_unique_kmers",
-                               f"unique_kmers_min_edge_cov_"
-                               f"{cfg.min_coverage}.txt")) as f:
-            from_file = [string_to_kmer_code(ln.strip()) for ln in f]
+    res, run_s, sums = run(dec, dev, outdir)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(outdir, "recruited_unique_kmers",
+                           f"unique_kmers_min_edge_cov_"
+                           f"{cfg.min_coverage}.txt")) as f:
+        from_file = [string_to_kmer_code(ln.strip()) for ln in f]
     logger.removeHandler(log)
     check(from_file == res.codes.tolist(),
           "full world: the k-mer artifact differs from the result")
@@ -1291,7 +1383,8 @@ def check_scoring_calls(calls, dev):
     return shapes
 
 
-def phase_placement(world, dec, res, dev, want_digest=PLACEMENT_DIGEST):
+def phase_placement(world, dec, res, dev, outdir,
+                    want_digest=PLACEMENT_DIGEST):
     """Stage 4 on the card at the full world: `run_placement` (the clouds
     of stage 3's unique k-mers, then the greedy placement, its bulk
     scoring on `dev`) and `run_placement_validation`, through the port's
@@ -1309,7 +1402,7 @@ def phase_placement(world, dec, res, dev, want_digest=PLACEMENT_DIGEST):
     package's for this world (`want_digest`, PLACEMENT_DIGEST for the
     full world; None skips it for other worlds), 95% of the placed reads
     sit at the modal offset 0, and 90% of them re-map to their
-    placement."""
+    placement. Both artifacts stay in `outdir`."""
     t0 = time.perf_counter()
     pcfg, kcfg = PlacerConfig(), KmerRecruitmentConfig()
     log = PhaseLog()
@@ -1318,20 +1411,18 @@ def phase_placement(world, dec, res, dev, want_digest=PLACEMENT_DIGEST):
     logger.addHandler(log)
     calls = []
     torch.cuda.reset_peak_memory_stats()
-    with recorded_scoring(calls), tempfile.TemporaryDirectory() as tmp:
+    with recorded_scoring(calls):
         t = time.perf_counter()
         placements, clouds = run_placement(dec, res.codes, pcfg, kcfg.k,
-                                           tmp, device=dev)
+                                           outdir, device=dev)
         torch.cuda.synchronize()
         place_s = time.perf_counter() - t
-        t = time.perf_counter()
-        agree = run_placement_validation(placements, clouds, pcfg, kcfg,
-                                         tmp)
-        valid_s = time.perf_counter() - t
-        pos_fn = os.path.join(tmp, "tr_resolution", "read_positions.csv")
-        from_file = read_positions_file(pos_fn)
-        with open(pos_fn, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
+    t = time.perf_counter()
+    agree = run_placement_validation(placements, clouds, pcfg, kcfg, outdir)
+    valid_s = time.perf_counter() - t
+    pos_fn = os.path.join(outdir, "tr_resolution", "read_positions.csv")
+    from_file = read_positions_file(pos_fn)
+    digest = sha256_of(pos_fn)
     peak = torch.cuda.max_memory_allocated()
     logger.removeHandler(log)
     sums = log.sums
@@ -1399,6 +1490,261 @@ def phase_placement(world, dec, res, dev, want_digest=PLACEMENT_DIGEST):
     return out
 
 
+KERNELS = {"k1": myers_hw_2strand, "k2": myers_hw_v3,
+           "k3": myers_hw_v3_banded}
+PIPELINE_STAGES = ("run_recruitment", "run_decomposition",
+                   "run_unique_kmers", "run_placement",
+                   "run_placement_validation", "run_unit_consensus",
+                   "run_polisher", "run_tandem_polish")
+
+
+def timed_pipeline(pipe, seconds, calls):
+    """Wrap each stage method of `pipe` (the port's or the JAX package's)
+    to add its seconds (synchronised with the card) to `seconds` and keep
+    its arguments in `calls`."""
+    on_card = getattr(pipe, "device", torch.device("cpu")).type == "cuda"
+
+    def wrap(name, fn):
+        def stage(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            if on_card:
+                torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            calls[name] = args
+            return out
+        return stage
+    for name in PIPELINE_STAGES:
+        setattr(pipe, name, wrap(name, getattr(pipe, name)))
+    return pipe
+
+
+def report_distances(fn):
+    """The editDistance of each line of a polish report.txt, in order."""
+    with open(fn) as f:
+        return [ast.literal_eval(ln)["editDistance"] for ln in f
+                if ln.startswith("{")]
+
+
+def write_pipeline_reads(fn, world, background):
+    """The cenX pipeline's reads file: the world's records (ids w*), its
+    reads over the array's ends with their full sequences, and the
+    background reads. Returns the ids of the first two groups and the
+    file's Mbp."""
+    reads = {r: rec.seq for r, rec in sorted(world.dec.records.items())}
+    reads.update(world.boundary)
+    cen = set(reads)
+    reads.update(background)
+    write_seqs(fn, reads)
+    return cen, sum(map(len, reads.values())) / 1e6
+
+
+def hold_fused_k1(captured, m, rate):
+    """K1 against its plain version on every row of one fused step of
+    the pipeline's stage 1, at its segment length (PIPELINE_SEG_LEN
+    columns). Of the `captured` K1 inputs, the batch is one with a
+    full-length row and rows both within and past THRESHOLD, if there
+    is one, and of those the one with most rows within. Returns the
+    fields for the phase's line and K1's instance."""
+    scored = []
+    for peq_f, peq_r, codes, lens in captured:
+        text_t = codes.t().contiguous()
+        got = myers_hw_2strand(peq_f, peq_r, text_t, lens, m=m)
+        d = torch.minimum(got["dist_f"], got["dist_r"])
+        scored.append(((int(lens.max()) == PIPELINE_SEG_LEN,
+                        int((d <= THRESHOLD).sum()) > 0
+                        and int((d > THRESHOLD).sum()) > 0,
+                        int((d <= THRESHOLD).sum())),
+                       (peq_f, peq_r, text_t, lens), got))
+    check(scored, "the pipeline's stage 1 ran no fused step")
+    key, args, got = max(scored, key=lambda x: x[0])
+    check(key[0], f"no captured fused step holds a {PIPELINE_SEG_LEN}-column "
+          f"row")
+    want, plain_ms = timed_plain(lambda: myers_hw_2strand_plain(*args, m=m))
+    err = max_abs_err(got, want)
+    ms = time_cuda(lambda: myers_hw_2strand(*args, m=m), reps=5)
+    rows = args[3].numel()
+    bound_ms, _ = myers_bound(args[3], args[0].shape[1], 2, rate)
+    check(err == 0, f"K1 != plain on the pipeline's fused step "
+          f"({rows}x{PIPELINE_SEG_LEN})")
+    fields = {"rows": rows, "sum_lens": int(args[3].sum()),
+              "rows_in_band": key[2], "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "group": pick_group(rows, 2), "batches_captured": len(captured)}
+    return fields, {f"{rows}x{PIPELINE_SEG_LEN} cenx_pipeline fused step":
+                    fields}
+
+
+def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
+                        want=(ASSEMBLY_DIGEST, UNIT_STAR_DIGEST)):
+    """The cenX pipeline from a reads file to final_assembly.fasta on the
+    card, at the full world: `CenXPipeline(unit, CentroFlyeConfig(),
+    outdir, device=dev).run(reads)`. Stage 1 recruits from the world's
+    records, its reads over the array's ends and `background` (K1 in
+    the fused step); stages 2-4 resume from the artifacts that phases
+    unique_kmers and placement left in `outdir` (decomposition.json,
+    the unique k-mers, read_positions.csv, placement_validation.csv);
+    stages 5 and 6 run. Fails unless K1 launched, the recruited reads
+    are every world read and no background read, equal to the exact
+    tier's set (prefilter off) on the same file, K1 on one of its fused
+    steps equals the plain version (`hold_fused_k1`, at the pipeline's
+    segment length), unit* is within 5 edits
+    (NW) of the unit, and the assembly, held against the simulated array
+    over the polished units min_p..max_p at offset 0 (NW), diverges by
+    at most 0.5% with a length within 1% of that span; and unless
+    final_assembly.fasta and unit_star.fasta have the sha256 in `want`
+    (the JAX package's files for this world, tools/cenx_vs_jax.py;
+    None skips one). Prints each stage's seconds, the polished
+    positions, the assembly's length and divergence, the edit distances
+    between the iterations of both polish reports and the peak device
+    memory. Returns K1's launches and instance on this path."""
+    t0 = time.perf_counter()
+    reads_fn = os.path.join(outdir, "reads.fasta")
+    cen, mbp = write_pipeline_reads(reads_fn, world, background)
+    write_s = time.perf_counter() - t0
+    cfg = CentroFlyeConfig()
+    seconds, calls = {}, {}
+    pipe = timed_pipeline(CenXPipeline(unit, cfg, outdir, device=dev),
+                          seconds, calls)
+    # the fused step's K1 inputs (tensors it made for the call, kept by
+    # reference), for the check against the plain version after the run
+    captured, steps, score = [], [0], fused_recruit.recruit_distances
+
+    def capture(peq_f, peq_r, codes, lens, *, m):
+        if steps[0] % FUSED_EVERY == 0:
+            captured.append((peq_f, peq_r, codes, lens))
+        steps[0] += 1
+        return score(peq_f, peq_r, codes, lens, m=m)
+    fused_recruit.recruit_distances = capture
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        final = pipe.run(reads_fn)
+    finally:
+        fused_recruit.recruit_distances = score
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = {k: kernel.launches for k, kernel in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    fused, k1_instance = hold_fused_k1(captured, len(unit), rate)
+    fused["seconds"] = time.perf_counter() - t
+    del captured
+    check(launches["k1"] > 0, "the cenX pipeline launched K1 no time")
+    check(set(seconds) == set(PIPELINE_STAGES),
+          f"stages run: {sorted(seconds)}")
+
+    recruited = [r for r, _ in iter_seqs(os.path.join(
+        outdir, "centromeric_reads.fasta"))]
+    t = time.perf_counter()
+    exact = RecruitmentEngine(unit, RecruitmentConfig(prefilter=False),
+                              device=dev)
+    exact_set = {r.r_id for r in exact.run(iter_seqs(reads_fn))
+                 if r.recruited}
+    exact_s = time.perf_counter() - t
+    check(set(recruited) == cen,
+          f"recruited: {len(cen - set(recruited))} world reads missed, "
+          f"{len(set(recruited) - cen)} background reads taken")
+    check(set(recruited) == exact_set,
+          f"recruited != the exact tier's set: "
+          f"{sorted(set(recruited) ^ exact_set)[:10]}")
+
+    star_fn = os.path.join(outdir, "cons_unit", "unit_star.fasta")
+    final_fn = os.path.join(outdir, "final_assembly.fasta")
+    unit_star = read_seq(star_fn)
+    star_edits = _edit_distance(unit_star, unit)
+    dec, placements_p = calls["run_polisher"]
+    pcfg = cfg.polisher
+    positions = sorted(map_pos2read(
+        placements_p, {r: rec.motif_alignments()
+                       for r, rec in dec.records.items()},
+        min_pos=pcfg.min_pos, max_pos=pcfg.max_pos))
+    min_p, max_p = positions[0], positions[-1]
+    m = world.unit_len
+    truth = decode(world.arr[min_p * m:(max_p + 1) * m])
+    t = time.perf_counter()
+    edits = _edit_distance(final, truth)
+    edit_s = time.perf_counter() - t
+    with open(os.path.join(outdir, "metrics.json")) as f:
+        metrics = {k: v["wall_s"] for k, v in json.load(f).items()}
+    digests = {"final_assembly": sha256_of(final_fn),
+               "unit_star": sha256_of(star_fn)}
+    out = {"phase": "cenx_pipeline", "reads_mbp": mbp,
+           "world_reads": len(cen), "background_reads": len(background),
+           "recruited": len(recruited), "exact_tier_equal": True,
+           "exact_tier_seconds": exact_s, "launches": launches,
+           "k1_fused_step_vs_plain": fused,
+           "unit_star_len": len(unit_star), "unit_star_edits": star_edits,
+           "polished_positions": len(positions), "min_p": min_p,
+           "max_p": max_p, "assembly_len": len(final),
+           "span_len": len(truth), "assembly_edits": edits,
+           "divergence": edits / len(truth), "edit_seconds": edit_s,
+           "polishing_report": report_distances(
+               os.path.join(outdir, "polishing", "report.txt")),
+           "tandem_polish_report": report_distances(
+               os.path.join(outdir, "polishing2", "report.txt")),
+           "stage_seconds": seconds, "metrics_wall_s": metrics,
+           "run_seconds": run_s, "write_reads_seconds": write_s,
+           "max_memory_allocated": peak, "sha256": digests,
+           "equal_jax": {k: None if w is None else digests[k] == w
+                         for k, w in zip(digests, want)},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(star_edits <= 5, f"unit* is {star_edits} edits from the unit")
+    check(edits <= 0.005 * len(truth),
+          f"assembly: {edits} edits over a {len(truth)}-bp span")
+    check(abs(len(final) - len(truth)) <= 0.01 * len(truth),
+          f"assembly length {len(final)} against a {len(truth)}-bp span")
+    for (name, got), w in zip(digests.items(), want):
+        check(w is None or got == w,
+              f"{name} differs from the JAX package's file for this world")
+    return launches, k1_instance, out
+
+
+def phase_cenx_fresh(dev):
+    """The cenX pipeline with nothing resumed, at tests/test_e2e_cenx.py's
+    world and config (`fresh_world`, `fresh_config`): from one reads
+    file, on the card and on the CPU. Every artifact but metrics.json
+    must be equal, and a second run on the card must resume from them
+    and return the same assembly."""
+    t0 = time.perf_counter()
+    unit, _, reads = fresh_world()
+    with tempfile.TemporaryDirectory() as tmp:
+        reads_fn = os.path.join(tmp, "reads.fasta")
+        write_seqs(reads_fn, reads)
+        finals, files, seconds = {}, {}, {}
+        for where, d in (("card", dev), ("cpu", "cpu"), ("resume", dev)):
+            out = os.path.join(tmp, "card" if where == "resume" else where)
+            stage_s = {}
+            pipe = timed_pipeline(CenXPipeline(unit, fresh_config(), out,
+                                               device=d), stage_s, {})
+            myers_hw_2strand.launches = 0
+            finals[where] = pipe.run(reads_fn)
+            seconds[where] = {**stage_s,
+                              "k1_launches": myers_hw_2strand.launches}
+            files[where] = {
+                os.path.relpath(os.path.join(r, n), out): sha256_of(
+                    os.path.join(r, n))
+                for r, _, names in os.walk(out) for n in names
+                if n != "metrics.json"}
+    same = files["card"] == files["cpu"]
+    emit({"phase": "cenx_fresh", "reads": len(reads),
+          "artifacts": len(files["card"]), "identical": same,
+          "assembly_len": len(finals["card"]),
+          "resume_equal": finals["resume"] == finals["card"],
+          "stage_seconds": seconds, "seconds": time.perf_counter() - t0})
+    check(seconds["card"]["k1_launches"] > 0,
+          "cenx_fresh: the card's run launched K1 no time")
+    check(len(files["card"]) == 17 and same,
+          f"cenx_fresh: the card's artifacts differ from the CPU's: "
+          f"{sorted(k for k in files['card'] if files['card'][k] != files['cpu'].get(k))}")
+    check(finals["card"] == finals["cpu"] == finals["resume"]
+          and files["resume"] == files["card"],
+          "cenx_fresh: the resumed run differs")
+
+
 def valid_score(cfg, score0, score1):
     """The placement rule (stages/placement_fast.FastPlacer._valid_key)."""
     return (score1 >= 1 and score0 >= cfg.min_unit
@@ -1435,24 +1781,43 @@ def main():
     phase_cli(reads, recruited, dev)
     ops_launches, at_2048 = phase_myers_ops(unit, reads, recruited, batches,
                                             overlap, dev, rate)
+    phase_cenx_fresh(dev)
     t = time.perf_counter()
     world = make_world(unit, N_UNITS)
     world_s = time.perf_counter() - t
     boundary_dec = phase_decomposition(unit, world)
-    res, dec = phase_unique_kmers(unit, dev, world, world_s, boundary_dec)
-    phase_placement(world, dec, res, dev)
+    # stages 2-4's artifacts outlive their phases: the pipeline resumes
+    # from them
+    with tempfile.TemporaryDirectory() as outdir:
+        res, dec = phase_unique_kmers(unit, dev, world, world_s,
+                                      boundary_dec, outdir)
+        phase_placement(world, dec, res, dev, outdir)
+        del res, dec
+        background = [(r, s) for r, s in reads if r not in recruited]
+        pipeline_launches, k1_pipeline, _ = phase_cenx_pipeline(
+            unit, world, background, dev, outdir, rate)
     for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kernel.setdefault("instances", {}).update(at_2048[key])
+    k1["instances"].update(k1_pipeline)
+    k1["max_abs_err"] = max(k1["max_abs_err"], *(
+        i["max_abs_err"] for i in k1_pipeline.values()))
+    by_path = {"k1": {"main_path": launches},
+               "k2": {"myers_ops": ops_launches["k2"]},
+               "k3": {"myers_ops": ops_launches["k3"]}}
+    for key, n in pipeline_launches.items():
+        by_path[key]["cenx_pipeline"] = n
     emit({"kernels": [
         {"name": "myers_hw_2strand", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K1_REPLACES,
-         "launches": launches, **k1},
+         "launches": launches, "launches_by_path": by_path["k1"], **k1},
         {"name": "myers_hw_v3", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K2_REPLACES,
-         "launches": ops_launches["k2"], **k2},
+         "launches": ops_launches["k2"], "launches_by_path": by_path["k2"],
+         **k2},
         {"name": "myers_hw_v3_banded", "route": "cuda",
          "source": f"{CSRC}/myers_hw_banded.cu", "replaces": K3_REPLACES,
-         "launches": ops_launches["k3"], **k3}]})
+         "launches": ops_launches["k3"], "launches_by_path": by_path["k3"],
+         **k3}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

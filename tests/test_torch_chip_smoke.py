@@ -140,3 +140,35 @@ def test_scoring_calls_recorded_and_replayed(monkeypatch, max_vocab):
     calls[0]["s1"] = calls[0]["s1"] + 1
     with pytest.raises(SystemExit, match="differ"):
         chip_smoke.check_scoring_calls(calls, "cpu")
+
+
+def test_hold_fused_k1_takes_a_mixed_full_batch(monkeypatch):
+    """hold_fused_k1 on CPU tensors (K1's plain route) at a 512-column
+    segment: of a short batch, a full batch of tandem rows only and a
+    full batch with rows within and past the threshold, it holds the
+    last against the plain version, on every row."""
+    import torch
+
+    import chip_smoke as cs
+    monkeypatch.setattr(cs, "PIPELINE_SEG_LEN", 512)
+    monkeypatch.setattr(cs, "THRESHOLD", 10)
+    monkeypatch.setattr(cs, "time_cuda", lambda fn, reps: fn() and 0.0)
+    monkeypatch.setattr(cs, "timed_plain", lambda fn: (fn(), 0.0))
+    rng = np.random.default_rng(3)
+    m, L, B = 40, 512, 16
+    unit = rng.integers(0, 4, m).astype(np.int8)
+
+    def batch(lens_cap, tandem_only):
+        pf, pr, text_t, lens = cs.k1_case(rng, unit, m, L, B, "cpu")
+        codes = text_t.t().contiguous()
+        if tandem_only:
+            codes[:] = torch.from_numpy(np.tile(unit, L // m + 1)[:L])
+            lens[:] = L
+        return pf, pr, codes, lens.clamp(max=lens_cap)
+    captured = [batch(L - 1, False), batch(L, True), batch(L, False)]
+    fields, instance = cs.hold_fused_k1(captured, m, rate=1e13)
+    assert list(instance) == [f"{B}x512 cenx_pipeline fused step"]
+    assert fields["max_abs_err"] == 0 and fields["rows"] == B
+    assert fields["sum_lens"] == int(captured[2][3].sum())
+    assert 0 < fields["rows_in_band"] < B
+    assert fields["batches_captured"] == 3

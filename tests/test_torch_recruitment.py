@@ -144,6 +144,53 @@ def test_recruit_file_bytes_match_jax(tmp_path):
         assert a.read() == b.read()
 
 
+@pytest.mark.parametrize("fmt", ["fasta", "fastq.gz"])
+def test_recruit_file_writes_the_jax_native_form(tmp_path, fmt):
+    """With its native library built, the JAX package reads through its
+    native reader and writes each recruited read as decoded codes: upper
+    case, every other letter N. The port writes the same bytes, from
+    FASTA and from gzipped FASTQ, on reads with soft-masked stretches
+    and IUPAC letters."""
+    import gzip
+    from centroflye_tpu import native as jnative
+    from centroflye_tpu.io import write_seqs
+    assert jnative.load_native(build=True) is not None
+    unit, reads = _stream(seed=11, n_short_tandem=10)
+    rng = np.random.default_rng(4)
+    iupac = "RYKMSWBDHVNrykmswbdhvn"
+    odd = []
+    for i, (r_id, seq) in enumerate(reads):
+        if len(seq) > 40 and i % 2 == 0:
+            a = int(rng.integers(0, len(seq) - 30))
+            seq = seq[:a] + seq[a:a + 25].lower() + seq[a + 25:]
+            b = int(rng.integers(0, len(seq) - 5))
+            seq = seq[:b] + "".join(rng.choice(list(iupac), 4)) + seq[b + 4:]
+            odd.append(r_id)
+        reads[i] = (r_id, seq)
+    unit_fn = str(tmp_path / "unit.fasta")
+    write_seqs(unit_fn, {"unit": unit})
+    reads_fn = str(tmp_path / f"reads.{fmt}")
+    if fmt == "fasta":
+        with open(reads_fn, "w") as f:
+            for r_id, seq in reads:
+                f.write(f">{r_id} some description\n{seq}\n")
+    else:
+        with gzip.open(reads_fn, "wt") as f:
+            for r_id, seq in reads:
+                f.write(f"@{r_id}\n{seq}\n+\n{'I' * len(seq)}\n")
+    out_j = str(tmp_path / "jax.fasta")
+    out_t = str(tmp_path / "port.fasta")
+    n_j = jrec.recruit_file(unit_fn, reads_fn, out_j, THRESHOLD,
+                            batch_size=16, seg_len=SEG_LEN, mesh=None)
+    n_t = trec.recruit_file(unit_fn, reads_fn, out_t, THRESHOLD,
+                            batch_size=16, seg_len=SEG_LEN, device="cpu")
+    with open(out_j) as a, open(out_t) as b:
+        jtext, ttext = a.read(), b.read()
+    assert n_t == n_j > 10
+    assert any(f">{r}\n" in jtext for r in odd)
+    assert ttext == jtext
+
+
 @pytest.mark.parametrize("prefilter", [True, False])
 def test_state_from_jax_engine(prefilter):
     unit, reads = _stream(seed=8, n_short_tandem=10)

@@ -60,10 +60,10 @@ def main():
     unit = read_seq(cs.UNIT_FASTA)
     world = cs.make_world(unit, cs.N_UNITS)
     bdec = cs.phase_decomposition(unit, world)
-    res, dec = cs.phase_unique_kmers(unit, torch.device("cuda"), world, 0.0,
-                                     bdec)
     k = KmerRecruitmentConfig().k
     with tempfile.TemporaryDirectory() as tmp:
+        res, dec = cs.phase_unique_kmers(unit, torch.device("cuda"), world,
+                                         0.0, bdec, tmp)
         t = time.perf_counter()
         placements, clouds = run_placement(dec, res.codes, PlacerConfig(), k,
                                            tmp, device="cuda")
