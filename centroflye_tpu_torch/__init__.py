@@ -33,7 +33,14 @@ package's:
 - `config.CentroFlyeConfig` (its JSON is the JAX package's),
   `utils/bio.py`, `utils/logging_utils.py` (metrics.json).
 The device work of stages 3-5 is plain PyTorch: the JAX package has no
-Pallas kernel there. Not ported yet: the cen6 monomer pipeline, the
-multi-device paths, the native reader (`seqio.cpp`) and
-`stages/unit_extraction.py`.
+Pallas kernel there.
+
+Also ported: the cen6 pipeline (centroFlyeMono), `mono/pipeline.MonoPipeline`
+and its CLI (`python -m centroflye_tpu_torch.mono.pipeline`): the monomer
+decomposer (`mono/string_decomposer.py`), whose lockstep steps run on
+kernel K4, per-row-query Myers (`csrc/myers_perrow.cu`, the counterpart
+of the JAX package's `ops/myers.myers_distance_batch` scan), and host
+copies of the monostring, SD report, error correction, monomer de
+Bruijn and scaffolding modules. Not ported yet: the multi-device paths,
+the native reader (`seqio.cpp`) and `stages/unit_extraction.py`.
 """

@@ -123,8 +123,9 @@ class PolisherConfig:
 @dataclasses.dataclass(frozen=True)
 class MonoConfig:
     """centroFlyeMono / cen6 pipeline (reference scripts/centroFlyeMono.py:32-51
-    and sd_parser.py / mono_error_correction.py defaults). Kept for field
-    parity with the JAX config: the port has no cen6 pipeline yet."""
+    and sd_parser.py / mono_error_correction.py defaults), read by
+    `mono/pipeline.MonoPipeline`. `pipeline/cenx.CenXPipeline` does not
+    read it."""
 
     min_k: int = 100
     max_k: int = 400

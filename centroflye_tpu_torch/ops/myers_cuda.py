@@ -6,6 +6,7 @@
 | `myers_hw_2strand` (and `recruit_distances`) | `csrc/myers_hw_2strand.cu` | `myers_hw_pallas_v3_2strand`, `recruit_distances_pallas` |
 | `myers_hw_v3` | `csrc/myers_hw_2strand.cu` (one strand) | `myers_hw_pallas_v3` |
 | `myers_hw_v3_banded` | `csrc/myers_hw_banded.cu` | `myers_hw_pallas_v3_banded` |
+| `myers_perrow` (K4) | `csrc/myers_perrow.cu` | `ops/myers.py::myers_distance_batch` with per-row queries (a `jnp` scan, no Pallas kernel) |
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in its `launches` attribute. The two-strand and one-strand wrappers run
@@ -21,6 +22,12 @@ prefix filter on the first r0 query rows, then the survivors on all m
 rows, each pass in column windows where the rows alone leave the card
 short of work. `myers_hw_v3_banded_split_plain` carries the plan out in
 plain torch for the tests.
+
+K4, `myers_perrow`, scores every text window against every query of a
+set (the monomer decomposer's lockstep step: both strands of every
+monomer against each read's window), in SHW mode collecting (dist, end)
+or in HW mode collecting the score after every column. Its query set
+(`perrow_queries`) is checked and laid out once, not at every step.
 """
 
 from __future__ import annotations
@@ -421,3 +428,113 @@ def recruit_distances(peq_fwd, peq_rc, codes, lens, *, m: int):
     out = myers_hw_2strand(peq_fwd, peq_rc, codes.t().contiguous(),
                            lens.contiguous(), m=m)
     return out["dist_f"], out["dist_r"]
+
+
+PERROW_MAX_WORDS = 8    # K4: m <= 256, vp and vn in one thread's registers
+MODES = {"HW": 0, "SHW": 1}
+# the decomposer's two calls: every later step (anchored start, best end)
+# and the first step (free start, the score after every column)
+PERROW_CALLS = (("SHW", "best"), ("HW", "all"))
+
+
+class PerrowQueries(NamedTuple):
+    """K4's query set, checked and laid out once by `perrow_queries`, so
+    that a step's call reads nothing back from the card and converts
+    nothing."""
+    peqs: torch.Tensor      # (Q, 5, W) int64-held 32-bit words
+    words: torch.Tensor | None  # the same bits as int32 (the kernel's); CPU: None
+    ms: torch.Tensor        # (Q,) int32 query lengths in [1, m]
+    m: int
+
+
+def perrow_queries(peqs, ms, *, m: int, device) -> PerrowQueries:
+    """peqs: (Q, 5, W) int64 tensor of 32-bit words, W = n_words(m), each
+    query's bits zero at and above its length; ms: (Q,) query lengths,
+    each in [1, m] (checked here, on the host). On the card m <= 256."""
+    device = torch.device(device)
+    ms_host = torch.as_tensor(ms).cpu()
+    W = n_words(m)
+    if m < 1 or (device.type == "cuda" and W > PERROW_MAX_WORDS):
+        raise ValueError(f"m={m}: K4 takes 1 <= m <= "
+                         f"{32 * PERROW_MAX_WORDS}")
+    if peqs.dim() != 3 or tuple(peqs.shape[1:]) != (5, W) \
+            or peqs.dtype != torch.int64:
+        raise ValueError(f"peqs {peqs.dtype} {tuple(peqs.shape)}, "
+                         f"expected int64 (Q, 5, {W})")
+    if ms_host.shape != (peqs.shape[0],):
+        raise ValueError(f"ms shape {tuple(ms_host.shape)} for "
+                         f"{peqs.shape[0]} queries")
+    if ms_host.numel() and bool(((ms_host < 1) | (ms_host > m)).any()):
+        raise ValueError(f"ms must lie in [1, {m}]")
+    peqs = peqs.to(device).contiguous()
+    return PerrowQueries(
+        peqs, _words_as_int32(peqs) if device.type == "cuda" else None,
+        ms_host.to(device=device, dtype=torch.int32).contiguous(), m)
+
+
+def _check_call(mode, collect):
+    if (mode, collect) not in PERROW_CALLS:
+        raise ValueError(f"mode={mode!r}, collect={collect!r}: K4 runs "
+                         f"{PERROW_CALLS}")
+
+
+def myers_perrow_plain(queries: PerrowQueries, windows, wlens, *,
+                       mode="SHW", collect="best"):
+    """Plain PyTorch version of K4: the rows of `myers_perrow` laid out
+    (windows repeated Q times, the queries tiled R times) and scored by
+    `myers_distance_batch`. Same arguments and outputs."""
+    _check_call(mode, collect)
+    R, Q = windows.shape[0], queries.peqs.shape[0]
+    return myers_distance_batch(
+        queries.peqs.repeat(R, 1, 1), windows.repeat_interleave(Q, dim=0),
+        wlens.reshape(-1).repeat_interleave(Q), m=queries.m, mode=mode,
+        ms=queries.ms.repeat(R), collect=collect)
+
+
+def myers_perrow(queries: PerrowQueries, windows, wlens, *, mode="SHW",
+                 collect="best"):
+    """Every window against every query: row r * Q + q is windows[r]
+    (its first wlens[r] codes) against query q, the layout of
+    `np.repeat(windows, Q)` beside `np.tile(peqs, R)`.
+
+    queries: `perrow_queries(...)` on the windows' device; windows: (R, L)
+    int8 codes; wlens: (R,) int32; (mode, collect) one of PERROW_CALLS:
+    "best" -> {"dist", "end"} (R Q,) int32, "all" -> {"scores"} (R Q, L)
+    int32, as `ops/myers.myers_distance_batch`. On a CUDA tensor it
+    launches K4 and synchronises nothing."""
+    _check_call(mode, collect)
+    dev = windows.device
+    if dev.type == "cpu":
+        return myers_perrow_plain(queries, windows, wlens, mode=mode,
+                                  collect=collect)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if queries.words is None:
+        raise ValueError("queries were laid out for the CPU")
+    if windows.dim() != 2:
+        raise ValueError(f"windows {tuple(windows.shape)} must be (R, L)")
+    (R, L), (Q, _, W) = windows.shape, queries.words.shape
+    _check("windows", windows, torch.int8, (R, L), dev)
+    _check("queries", queries.words, torch.int32, (Q, 5, W), dev)
+    _check("wlens", wlens, torch.int32, (R,), dev)
+    lib = load_library()
+    if collect == "all":
+        scores = torch.empty((R * Q, L), dtype=torch.int32, device=dev)
+        ptrs = (None, None, scores.data_ptr())
+    else:
+        dist = torch.empty(R * Q, dtype=torch.int32, device=dev)
+        end = torch.empty(R * Q, dtype=torch.int32, device=dev)
+        ptrs = (dist.data_ptr(), end.data_ptr(), None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cf_myers_perrow(
+            queries.words.data_ptr(), queries.ms.data_ptr(),
+            windows.data_ptr(), wlens.data_ptr(), *ptrs, Q, R, L, W,
+            MODES[mode], int(collect == "all"), stream)
+    _raise_on(rc, "cf_myers_perrow")
+    myers_perrow.launches += 1
+    return {"scores": scores} if collect == "all" else {"dist": dist,
+                                                        "end": end}
+
+
+myers_perrow.launches = 0

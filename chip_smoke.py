@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch port (centroflye_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the main path's shapes (K1 two-strand, K2
-one-strand and K3 threshold-k banded HW Myers), then drives read
+one-strand and K3 threshold-k banded HW Myers, K4 per-row-query Myers),
+then drives read
 recruitment (stage 1 of cenX) on the real DXZ1 unit and a rel2-matched
 read mix, its file CLI, and the Myers op library's HW entry points (K2,
 K3) on the exact tier's batches of that mix. K1 and K2 are one wavefront
@@ -53,6 +54,22 @@ DXZ1; the assembly within 0.5% of the simulated array over its span;
 final_assembly.fasta and unit_star.fasta the JAX package's files
 (ASSEMBLY_DIGEST, UNIT_STAR_DIGEST, tools/cenx_vs_jax.py).
 
+Then cen6 (centroFlyeMono). Phase k4 holds K4, the per-row-query Myers
+kernel of the monomer decomposer's lockstep step, against its plain
+version at that step's shape (the 18 D6Z1 monomers on both strands
+against 32 windows of 237 columns) and at m = 1..256 against the CPU;
+phase k1 also holds K1 at the D6Z1 unit (m = 3222). Phase cen6_fresh
+runs `MonoPipeline` (decomposer and run) at tests/test_mono_e2e.py's
+small world on the card and on the CPU: every file equal. Phase
+cen6_pipeline simulates benchmarks/bench_mono_cen6.py's 800-HOR array
+and its ultra-long reads at 30x, recruits them with `recruit_file`
+(D6Z1, 550) from a file that also holds main_path's reads, decomposes
+them on K4 and assembles them: recruited = the array's reads = the
+exact tier's set, call accuracy at least 0.99, every scaffold an exact
+run of the array, pseudounits within 1% of it, and scaffold_0.fasta and
+idb/ the JAX package's files (CEN6_SCAFFOLD_DIGEST, CEN6_IDB_DIGEST,
+tools/cen6_vs_jax.py).
+
     python3 chip_smoke.py
 
 Each phase prints one JSON line with its seconds. Any failed check exits
@@ -77,18 +94,26 @@ import torch
 from centroflye_tpu_torch import native
 from centroflye_tpu_torch.config import (COVERAGE, CentroFlyeConfig,
                                          ConsensusUnitConfig,
-                                         KmerRecruitmentConfig, PlacerConfig,
-                                         PolisherConfig, RecruitmentConfig,
+                                         KmerRecruitmentConfig, MonoConfig,
+                                         PlacerConfig, PolisherConfig,
+                                         RecruitmentConfig,
                                          UnitDecompositionConfig)
 from centroflye_tpu_torch.io.encoding import (decode, encode, kmer_codes,
                                               revcomp, revcomp_str,
                                               string_to_kmer_code)
-from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq, write_seqs
+from centroflye_tpu_torch.io.fasta import (iter_seqs, read_seq, read_seqs,
+                                           write_seqs)
+from centroflye_tpu_torch.mono import pipeline as mono_pipeline
+from centroflye_tpu_torch.mono import string_decomposer
+from centroflye_tpu_torch.mono.monostring import GAP
+from centroflye_tpu_torch.mono.pipeline import MonoPipeline
+from centroflye_tpu_torch.mono.string_decomposer import MonomerDecomposer
 from centroflye_tpu_torch.ops import _build, fused_recruit, scoring
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
     GROUPS, BandedRun, banded_plan, myers_hw_2strand, myers_hw_2strand_plain,
-    myers_hw_v3, myers_hw_v3_banded, myers_hw_v3_plain, pick_group,
+    PERROW_CALLS, myers_hw_v3, myers_hw_v3_banded, myers_hw_v3_plain,
+    myers_perrow, myers_perrow_plain, perrow_queries, pick_group,
     threshold_hw)
 from centroflye_tpu_torch.pipeline.cenx import (CenXPipeline,
                                                 run_placement,
@@ -98,6 +123,7 @@ from centroflye_tpu_torch.pipeline.cenx import (CenXPipeline,
 from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
                                                     gen_random_seq,
                                                     simulate_tandem_repeat)
+from centroflye_tpu_torch.stages import consensus
 from centroflye_tpu_torch.stages.distance_graph import recruit_unique_kmers
 from centroflye_tpu_torch.stages.polisher import _edit_distance, map_pos2read
 from centroflye_tpu_torch.stages.read_placer import read_positions_file
@@ -124,6 +150,7 @@ PALLAS = "centroflye_tpu/ops/myers_pallas_v3.py"
 K1_REPLACES = f"{PALLAS}:575"
 K2_REPLACES = f"{PALLAS}:188"
 K3_REPLACES = f"{PALLAS}:451"
+K4_REPLACES = "centroflye_tpu/ops/myers.py:113"   # a jnp scan, no pallas_call
 CSRC = "centroflye_tpu_torch/csrc"
 # bound: 32-bit integer operations per query word per text column (the
 # add with its carry 2, d0 2, hp and hn 2, the two shifts 2, vp and vn 2,
@@ -172,6 +199,34 @@ FRESH_UNIT = 150
 FRESH_MULT = 30
 FRESH_FLANK = 4000
 FRESH_NOISE = 0.02
+# cen6 (centroFlyeMono): the D6Z1 unit, its 18 monomers and the
+# recruitment threshold of run_all_cen6.sh:17; the world of
+# benchmarks/bench_mono_cen6.py: CEN6_HORS HOR copies with a variant
+# monomer at one in CEN6_VARIANT_EVERY positions, reads of its ultra-long
+# mix at CEN6_COVERAGE x (a cut from rel3's 120x, for the run's time
+# limit) with CEN6_NOISE uniform noise (its part A), strands half and half
+D6Z1_FASTA = os.path.join(HERE, "centroflye_tpu", "data", "D6Z1.fasta")
+D6Z1_MONOMERS = os.path.join(HERE, "centroflye_tpu", "data",
+                             "D6Z1_monomers.fasta")
+CEN6_THRESHOLD = 550
+CEN6_SEED = 23
+CEN6_HORS = 800
+CEN6_VARIANT_EVERY = 24
+CEN6_COVERAGE = 30
+CEN6_MEAN_MONOMERS = 430.0    # the ultra-long mix's mean read, monomers
+CEN6_NOISE = 0.08
+CEN6_MIN_ACCURACY = 0.99
+CEN6_MAX_DIVERGENCE = 0.01
+# the JAX package's polishing/scaffold_0/scaffold_0.fasta and idb/ for
+# this world (tools/cen6_vs_jax.py)
+CEN6_SCAFFOLD_DIGEST = (
+    "0715e64055eb6b2786bae7abce88153841c7d2f1a54439c9044da02c21aef894")
+CEN6_IDB_DIGEST = (
+    "6dcdda072e20bc3f8d88df8655c41effbb04368749a232ef4e220a97983de314")
+K4_REPS = 50
+K4_SAMPLE_EVERY = 16      # every 16th decomposer step timed on the device
+SPIN_CYCLES = 400_000     # a spin of about 0.2 ms queued ahead of a timing
+K4_SMALL_M = (1, 31, 32, 33, 64, 256)
 
 
 def fresh_world():
@@ -264,18 +319,31 @@ def make_reads(unit: str, n_reads: int = N_READS):
     return reads, cen
 
 
-def time_cuda(fn, reps):
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+def time_cuda(fn, reps, must_queue=False):
+    """Mean device milliseconds of fn() over reps launches, by CUDA
+    events. The launches queue behind a spin kernel, so the events time
+    the device's work and not the host's launch latency, as long as fn
+    does not wait for the card. must_queue: fail unless the host queued
+    every launch before the device reached the first event (the spin
+    grows fourfold, up to three times, until it did)."""
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    spin = SPIN_CYCLES * reps
+    for _ in range(4):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        queued = not t0.query()
+        t1.record()
+        torch.cuda.synchronize()
+        if queued or not must_queue:
+            return t0.elapsed_time(t1) / reps
+        spin *= 4
+    check(False, "the host did not queue the timed launches ahead of the "
+          "device")
 
 
 def k1_case(rng, unit_codes, m, L, B, dev):
@@ -455,19 +523,46 @@ def phase_k1(unit_codes, dev, rate):
     check(err_s == 0, "K1 != plain at m=90 (card or CPU)")
     bound_ms, bound_by = myers_bound(lens, pf.shape[1], 2, rate)
     group = pick_group(K_BUDGET, 2)
+    d6z1 = k1_d6z1(rng, dev, rate)
     emit({"phase": "k1", "shape": [K_BUDGET, SEG_LEN], "m": m,
           "max_abs_err": err, "k1_ms": k1_ms, "group": group,
           "ms_by_group": by_group, "bound_ms": bound_ms,
           "plain_ms": plain_ms, "small_m90_max_abs_err": err_s,
-          "seconds": time.perf_counter() - t0})
-    kernel = {"max_abs_err": max(err, err_s), "ms": k1_ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "d6z1": d6z1, "seconds": time.perf_counter() - t0})
+    kernel = {"max_abs_err": max(err, err_s, d6z1["max_abs_err"]),
+              "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": None,
               "instances": {f"{K_BUDGET}x{SEG_LEN}": {
                   "group": group, "ms": k1_ms, "bound_ms": bound_ms,
-                  "ms_by_group": by_group}}}
+                  "ms_by_group": by_group},
+                  f"{K_BUDGET}x{SEG_LEN} D6Z1 m={d6z1['m']}": d6z1}}
     return kernel, {"args": args, "want": want, "plain_f_ms": plain_f_ms,
                     "small": small, "small_m": small_m}
+
+
+def k1_d6z1(rng, dev, rate):
+    """K1 at cen6's unit (D6Z1, m = 3222, W = 101) on a K_BUDGET x SEG_LEN
+    batch of `k1_case`, the wrapper's instance and every G, against the
+    plain version (one call, about as long as DXZ1's: its time is per
+    column). -> the instance's fields."""
+    codes = encode(read_seq(D6Z1_FASTA))
+    m = len(codes)
+    args = k1_case(rng, codes, m, SEG_LEN, K_BUDGET, dev)
+    want, plain_ms = timed_plain(lambda: myers_hw_2strand_plain(*args, m=m))
+    err = max_abs_err(myers_hw_2strand(*args, m=m), want)
+    ms = time_cuda(lambda: myers_hw_2strand(*args, m=m), reps=20)
+    by_group = {}
+    for G in GROUPS:
+        err = max(err, max_abs_err(myers_hw_2strand(*args, m=m, group=G),
+                                   want))
+        by_group[G] = time_cuda(
+            lambda: myers_hw_2strand(*args, m=m, group=G), reps=20)
+    check(err == 0, f"K1 != plain at {K_BUDGET}x{SEG_LEN}, D6Z1 m={m}")
+    bound_ms, _ = myers_bound(args[3], args[0].shape[1], 2, rate)
+    return {"m": m, "words": args[0].shape[1], "max_abs_err": err,
+            "ms": ms, "group": pick_group(K_BUDGET, 2),
+            "ms_by_group": by_group, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
 
 
 def phase_k2(k1, k1_ms, m, rate):
@@ -855,17 +950,18 @@ def rel2_length_mix(rng, n):
     return np.clip(lens, 3_000, 200_000).astype(np.int64)
 
 
-def add_noise(rng, src):
-    """Uniform READ_NOISE on a code array, in bulk: deletion, insertion
-    before the base, substitution, a third each. Returns the noisy codes
-    and `cum`, where cum[i] is where source base i's span (an insertion
-    before it, then the base) starts in the output and cum[-1] is the
-    output's length."""
+def add_noise(rng, src, rate=READ_NOISE):
+    """Uniform noise at `rate` on a code array, in bulk: deletion,
+    insertion before the base, substitution, a third each (the model of
+    pipeline/simulate.add_read_noise). Returns the noisy codes and `cum`,
+    where cum[i] is where source base i's span (an insertion before it,
+    then the base) starts in the output and cum[-1] is the output's
+    length."""
     src = src.copy()
     r = rng.random(src.size)
-    third = READ_NOISE / 3
+    third = rate / 3
     dele, ins = r < third, (r >= third) & (r < 2 * third)
-    sub = (r >= 2 * third) & (r < READ_NOISE)
+    sub = (r >= 2 * third) & (r < rate)
     src[sub] = (src[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
     emit = np.where(dele, 0, np.where(ins, 2, 1))
     cum = np.concatenate([[0], np.cumsum(emit)])
@@ -1491,7 +1587,7 @@ def phase_placement(world, dec, res, dev, outdir,
 
 
 KERNELS = {"k1": myers_hw_2strand, "k2": myers_hw_v3,
-           "k3": myers_hw_v3_banded}
+           "k3": myers_hw_v3_banded, "k4": myers_perrow}
 PIPELINE_STAGES = ("run_recruitment", "run_decomposition",
                    "run_unique_kmers", "run_placement",
                    "run_placement_validation", "run_unit_consensus",
@@ -1539,11 +1635,30 @@ def write_pipeline_reads(fn, world, background):
     return cen, sum(map(len, reads.values())) / 1e6
 
 
-def hold_fused_k1(captured, m, rate):
+@contextlib.contextmanager
+def captured_fused_k1():
+    """Keeps every FUSED_EVERY-th fused recruitment step's K1 inputs
+    (tensors the step made for the call, kept by reference) in the list
+    it yields, for `hold_fused_k1` after the run."""
+    captured, steps, score = [], [0], fused_recruit.recruit_distances
+
+    def capture(peq_f, peq_r, codes, lens, *, m):
+        if steps[0] % FUSED_EVERY == 0:
+            captured.append((peq_f, peq_r, codes, lens))
+        steps[0] += 1
+        return score(peq_f, peq_r, codes, lens, m=m)
+    fused_recruit.recruit_distances = capture
+    try:
+        yield captured
+    finally:
+        fused_recruit.recruit_distances = score
+
+
+def hold_fused_k1(captured, m, rate, threshold, path):
     """K1 against its plain version on every row of one fused step of
-    the pipeline's stage 1, at its segment length (PIPELINE_SEG_LEN
+    `path`'s recruitment, at its segment length (PIPELINE_SEG_LEN
     columns). Of the `captured` K1 inputs, the batch is one with a
-    full-length row and rows both within and past THRESHOLD, if there
+    full-length row and rows both within and past `threshold`, if there
     is one, and of those the one with most rows within. Returns the
     fields for the phase's line and K1's instance."""
     scored = []
@@ -1552,27 +1667,27 @@ def hold_fused_k1(captured, m, rate):
         got = myers_hw_2strand(peq_f, peq_r, text_t, lens, m=m)
         d = torch.minimum(got["dist_f"], got["dist_r"])
         scored.append(((int(lens.max()) == PIPELINE_SEG_LEN,
-                        int((d <= THRESHOLD).sum()) > 0
-                        and int((d > THRESHOLD).sum()) > 0,
-                        int((d <= THRESHOLD).sum())),
+                        int((d <= threshold).sum()) > 0
+                        and int((d > threshold).sum()) > 0,
+                        int((d <= threshold).sum())),
                        (peq_f, peq_r, text_t, lens), got))
-    check(scored, "the pipeline's stage 1 ran no fused step")
+    check(scored, f"{path}'s recruitment ran no fused step")
     key, args, got = max(scored, key=lambda x: x[0])
-    check(key[0], f"no captured fused step holds a {PIPELINE_SEG_LEN}-column "
-          f"row")
+    check(key[0], f"no captured fused step of {path} holds a "
+          f"{PIPELINE_SEG_LEN}-column row")
     want, plain_ms = timed_plain(lambda: myers_hw_2strand_plain(*args, m=m))
     err = max_abs_err(got, want)
     ms = time_cuda(lambda: myers_hw_2strand(*args, m=m), reps=5)
     rows = args[3].numel()
     bound_ms, _ = myers_bound(args[3], args[0].shape[1], 2, rate)
-    check(err == 0, f"K1 != plain on the pipeline's fused step "
-          f"({rows}x{PIPELINE_SEG_LEN})")
-    fields = {"rows": rows, "sum_lens": int(args[3].sum()),
-              "rows_in_band": key[2], "max_abs_err": err, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "group": pick_group(rows, 2), "batches_captured": len(captured)}
-    return fields, {f"{rows}x{PIPELINE_SEG_LEN} cenx_pipeline fused step":
-                    fields}
+    check(err == 0, f"K1 != plain on {path}'s fused step "
+          f"({rows}x{PIPELINE_SEG_LEN}, m = {m})")
+    fields = {"m": m, "rows": rows, "sum_lens": int(args[3].sum()),
+              "rows_in_band": key[2], "mixed_band": key[1],
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "group": pick_group(rows, 2),
+              "batches_captured": len(captured)}
+    return fields, {f"{rows}x{PIPELINE_SEG_LEN} {path} fused step": fields}
 
 
 def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
@@ -1606,30 +1721,19 @@ def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
     seconds, calls = {}, {}
     pipe = timed_pipeline(CenXPipeline(unit, cfg, outdir, device=dev),
                           seconds, calls)
-    # the fused step's K1 inputs (tensors it made for the call, kept by
-    # reference), for the check against the plain version after the run
-    captured, steps, score = [], [0], fused_recruit.recruit_distances
-
-    def capture(peq_f, peq_r, codes, lens, *, m):
-        if steps[0] % FUSED_EVERY == 0:
-            captured.append((peq_f, peq_r, codes, lens))
-        steps[0] += 1
-        return score(peq_f, peq_r, codes, lens, m=m)
-    fused_recruit.recruit_distances = capture
     for kernel in KERNELS.values():
         kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    try:
+    with captured_fused_k1() as captured:
         final = pipe.run(reads_fn)
-    finally:
-        fused_recruit.recruit_distances = score
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
     launches = {k: kernel.launches for k, kernel in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     t = time.perf_counter()
-    fused, k1_instance = hold_fused_k1(captured, len(unit), rate)
+    fused, k1_instance = hold_fused_k1(captured, len(unit), rate, THRESHOLD,
+                                       "cenx_pipeline")
     fused["seconds"] = time.perf_counter() - t
     del captured
     check(launches["k1"] > 0, "the cenX pipeline launched K1 no time")
@@ -1745,6 +1849,554 @@ def phase_cenx_fresh(dev):
           "cenx_fresh: the resumed run differs")
 
 
+def k4_rows(rng, monomers, R, Wlen, dev):
+    """One lockstep step of the monomer decomposer at cen6's shape: R
+    windows of Wlen columns cut from noisy tandem copies of the D6Z1 HOR
+    (the monomers joined), on both strands, with ragged lengths, a
+    zero-length window, an all-N window (its best is the empty
+    alignment), an N run, a random window and windows of 1 and 10
+    columns."""
+    hor = encode("".join(monomers.values()))
+    src = [add_noise(rng, np.tile(hor, 4), CEN6_NOISE)[0],
+           revcomp(add_noise(rng, np.tile(hor, 4), CEN6_NOISE)[0])]
+    windows = np.empty((R, Wlen), np.int8)
+    for r in range(R):
+        s = src[r % 2]
+        a = int(rng.integers(0, s.size - Wlen))
+        windows[r] = s[a:a + Wlen]
+    wlens = np.full(R, Wlen, np.int32)
+    wlens[R // 2:] = rng.integers(1, Wlen + 1, R - R // 2)
+    wlens[5] = 0
+    windows[6] = 4
+    windows[7, 80:120] = 4
+    windows[8] = rng.integers(0, 4, Wlen)
+    wlens[9], wlens[10] = 1, 10
+    return (torch.from_numpy(windows).to(dev), torch.from_numpy(wlens).to(dev))
+
+
+def perrow_bound(wlens, L, Q, words, rate, collect="best"):
+    """(bound_ms, bound_by) of one K4 call: every window's first
+    min(wlens, L) columns against Q queries of `words` words
+    (OPS_PER_WORD_COLUMN each), against the bytes read once (windows,
+    lengths, peq tables and query lengths) and written once (dist and
+    end of each row, or with collect="all" its L scores)."""
+    n = int(wlens.clamp(0, L).sum())
+    ops = OPS_PER_WORD_COLUMN * words * n * Q
+    R = wlens.numel()
+    out_bytes = 8 * R * Q if collect == "best" else 4 * R * Q * L
+    nbytes = R * L + 4 * R + Q * (5 * 4 * words + 4) + out_bytes
+    op_ms, byte_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def k4_small(rng, m, dev):
+    """Queries of lengths in [1, m] (m among them) and windows of m + 40
+    columns (ragged, one of length 0, one holding a query's copy), as the
+    decomposer lays them out: -> (queries, windows, wlens) on `dev`."""
+    Q, R, L = 5, 7, m + 40
+    qlens = np.concatenate([[m], rng.integers(1, m + 1, Q - 1)])
+    queries = [rng.integers(0, 4, int(n)).astype(np.int8) for n in qlens]
+    peqs = np.stack([build_peq(q, m=m) for q in queries])
+    windows = rng.integers(0, 5, (R, L)).astype(np.int8)
+    windows[0, 10:10 + m] = queries[0]
+    wlens = rng.integers(0, L + 1, R).astype(np.int32)
+    wlens[0], wlens[1] = L, 0
+    return (perrow_queries(words_tensor(peqs, dev), qlens.astype(np.int32),
+                           m=m, device=dev),
+            torch.from_numpy(windows).to(dev), torch.from_numpy(wlens).to(dev))
+
+
+def k4_to_cpu(args):
+    """K4's arguments (queries, windows, wlens) moved to the CPU."""
+    queries, windows, wlens = args
+    return (perrow_queries(queries.peqs.cpu(), queries.ms.cpu(),
+                           m=queries.m, device="cpu"),
+            windows.cpu(), wlens.cpu())
+
+
+def phase_k4(dev, rate):
+    """K4 (`myers_perrow`) against its plain version on the card at the
+    decomposer's step: the real 18 D6Z1 monomers on both strands (36
+    queries, m = 173, W = 6) against batch_reads windows of the
+    decomposer's width (1,152 rows), in both of the decomposer's calls
+    (SHW/best, every later step; HW/all, the first step); then m in
+    K4_SMALL_M against the plain version on the CPU. max_abs_err must be
+    0. Prints K4's device ms for each call (launches queued ahead of the
+    device, `time_cuda`), the wrapper's host microseconds a call, its
+    bound and the plain version's ms."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    monomers = read_seqs(D6Z1_MONOMERS)
+    dec = MonomerDecomposer(monomers, device=dev)
+    R = dec.config.batch_reads
+    windows, wlens = k4_rows(rng, monomers, R, dec.window, dev)
+    args = (dec.queries, windows, wlens)
+    err, plain, ms, host_us = 0, {}, {}, {}
+    for mode, collect in PERROW_CALLS:
+        call = f"{mode}/{collect}"
+        got = myers_perrow(*args, mode=mode, collect=collect)
+        want, plain[call] = timed_plain(
+            lambda: myers_perrow_plain(*args, mode=mode, collect=collect))
+        err = max(err, max_abs_err(got, want))
+        if call == "SHW/best":
+            shw = {k: v.cpu().reshape(R, -1) for k, v in got.items()}
+        ms[call] = time_cuda(lambda: myers_perrow(*args, mode=mode,
+                                                  collect=collect),
+                             reps=K4_REPS, must_queue=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(K4_REPS):
+            myers_perrow(*args, mode=mode, collect=collect)
+        host_us[call] = (time.perf_counter() - t) / K4_REPS * 1e6
+        torch.cuda.synchronize()
+    check(err == 0, f"K4 != plain at {R * dec.ms.size}x{dec.window}")
+    check(bool((shw["end"][6] == -1).all()
+               and (shw["dist"][6] == torch.from_numpy(dec.ms)).all()),
+          "an all-N window must give the empty alignment (m, -1)")
+    small_err = {}
+    for sm in K4_SMALL_M:
+        small = k4_small(rng, sm, dev)
+        small_err[sm] = max(max_abs_err(
+            myers_perrow(*small, mode=mode, collect=collect),
+            myers_perrow(*k4_to_cpu(small), mode=mode, collect=collect))
+            for mode, collect in PERROW_CALLS)
+    check(max(small_err.values()) == 0,
+          f"K4 != the CPU plain version: {small_err}")
+    bounds = {f"{mode}/{collect}": perrow_bound(
+        wlens, dec.window, dec.ms.size, dec.peqs.shape[2], rate, collect)
+        for mode, collect in PERROW_CALLS}
+    bound_ms, bound_by = bounds["SHW/best"]
+    emit({"phase": "k4", "rows": R * dec.ms.size, "cols": dec.window,
+          "m": dec.max_m, "words": dec.peqs.shape[2], "max_abs_err": err,
+          "ms": ms, "host_us_per_call": host_us, "bound_ms": bounds,
+          "plain_ms": plain, "small_max_abs_err": small_err,
+          "seconds": time.perf_counter() - t0})
+    shape = f"{R * dec.ms.size}x{dec.window}"
+    return {"max_abs_err": max(err, *small_err.values()),
+            "ms": ms["SHW/best"], "plain_ms": plain["SHW/best"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "instances": {f"{shape} {call}": {
+                "ms": ms[call], "plain_ms": plain[call],
+                "bound_ms": bounds[call][0],
+                "host_us_per_call": host_us[call]} for call in ms}}
+
+
+def build_symbol_genome(rng, n_hor, n_mono, variant_every=CEN6_VARIANT_EVERY):
+    """benchmarks/bench_mono_cen6.build_symbol_genome: n_hor copies of the
+    n_mono-monomer HOR with a monomer substituted at one in
+    `variant_every` positions, which makes the k-sweep's k-mers
+    position-unique."""
+    syms = np.tile(np.arange(n_mono, dtype=np.int16), n_hor)
+    n_var = len(syms) // variant_every
+    marks = rng.choice(len(syms), size=n_var, replace=False)
+    for pos in marks:
+        cur = int(syms[pos])
+        alt = [x for x in range(n_mono) if x != cur]
+        syms[pos] = alt[int(rng.integers(0, n_mono - 1))]
+    return syms
+
+
+def cen6_length_mix(rng, n):
+    """benchmarks/bench_mono_cen6.read_length_mix: rel3's ultra-long mix
+    in monomers (30% around 700, the rest around 280, 30-2,000)."""
+    ul = rng.random(n) < 0.3
+    lens = np.where(ul, rng.lognormal(np.log(700), 0.5, n),
+                    rng.lognormal(np.log(280), 0.55, n))
+    return np.clip(lens, 30, 2000).astype(np.int64)
+
+
+@dataclasses.dataclass
+class Cen6World:
+    """The simulated cen6 world of `cen6_world`."""
+
+    monomers: dict            # D6Z1's monomers, name -> sequence
+    syms: np.ndarray          # the array in monomer symbols
+    arr: np.ndarray           # its codes
+    bounds: np.ndarray        # where each monomer starts in arr, then its end
+    reads: list               # (r_id, seq)
+    # a '+' read -> (where its source starts in arr, `add_noise`'s cum)
+    truth: dict
+
+
+def cen6_world(seed=CEN6_SEED, n_hor=CEN6_HORS, coverage=CEN6_COVERAGE):
+    """The cen6 array of benchmarks/bench_mono_cen6.py in nucleotides:
+    `build_symbol_genome` over the real D6Z1 monomers, each symbol its
+    monomer's sequence. Reads of `cen6_length_mix` at `coverage` over it
+    (starting inside a monomer, ending inside one), CEN6_NOISE of
+    `add_noise`, strands half and half."""
+    monomers = read_seqs(D6Z1_MONOMERS)
+    codes = [encode(s) for s in monomers.values()]
+    rng = np.random.default_rng(seed)
+    syms = build_symbol_genome(rng, n_hor, len(codes))
+    mlen = np.array([len(c) for c in codes])[syms]
+    bounds = np.concatenate([[0], np.cumsum(mlen)])
+    arr = np.concatenate([codes[s] for s in syms])
+    L = len(syms)
+    n_reads = int(coverage * L / CEN6_MEAN_MONOMERS)
+    lens = cen6_length_mix(rng, n_reads)
+    starts = rng.integers(-50, L - 20, size=n_reads)
+    reads, truth = [], {}
+    for i in range(n_reads):
+        s = max(0, int(starts[i]))
+        e = min(L, s + int(lens[i]))
+        if e - s < 30:
+            continue
+        a = int(bounds[s] + rng.integers(0, mlen[s]))
+        b = int(bounds[e - 1] + rng.integers(1, mlen[e - 1] + 1))
+        noisy, cum = add_noise(rng, arr[a:b], CEN6_NOISE)
+        r_id = f"c{i:05d}"
+        if rng.random() < 0.5:
+            reads.append((r_id, decode(noisy)))
+            truth[r_id] = (a, cum)
+        else:
+            reads.append((r_id, decode(revcomp(noisy))))
+    return Cen6World(monomers, syms, arr, bounds, reads, truth)
+
+
+def call_accuracy(world, sd):
+    """bench_mono_cen6.part_a_decomposition's indel-robust measure on the
+    '+' reads: each call's own nucleotide span, its midpoint carried to
+    the array through the noise (`cum`), names the monomer it must be.
+    -> (calls, correct, '+' reads whose monostring was flipped)."""
+    n = len(world.monomers)
+    calls = correct = flipped = 0
+    for r_id, (a, cum) in world.truth.items():
+        ms = sd.monostrings.get(r_id)
+        if ms is None:
+            continue
+        if ms.strand != "+":
+            flipped += 1
+            continue
+        ok = (ms.syms != GAP) & (ms.nucl[:, 0] >= 0)
+        mid = (ms.nucl[ok, 0] + ms.nucl[ok, 1]) // 2
+        src = np.searchsorted(cum, mid, side="right") - 1
+        t = np.searchsorted(world.bounds, a + src, side="right") - 1
+        calls += int(ok.sum())
+        correct += int((ms.syms[ok] % n == world.syms[t] % n).sum())
+    return calls, correct, flipped
+
+
+def find_run(hay, needle):
+    """Where the int16 run `needle` starts in `hay`, or -1."""
+    hb, nb = hay.astype(np.int16).tobytes(), needle.astype(np.int16).tobytes()
+    p = hb.find(nb)
+    while p >= 0 and p % 2:
+        p = hb.find(nb, p + 1)
+    return p // 2 if p >= 0 else -1
+
+
+def tree_digest(root):
+    """sha256 over the sorted (relative path, sha256) of every file."""
+    h = hashlib.sha256()
+    for r, _, names in sorted(os.walk(root)):
+        for name in sorted(names):
+            fn = os.path.join(r, name)
+            h.update(f"{os.path.relpath(fn, root)} {sha256_of(fn)}\n"
+                     .encode())
+    return h.hexdigest()
+
+
+MONO_STAGES = ("error_correction", "iterative_graph", "scaffolding",
+               "polish_scaffolds")
+
+
+@contextlib.contextmanager
+def timed_mono(pipeline_module, consensus_module, seconds, calls, polished):
+    """While open, each of MONO_STAGES that `pipeline_module`
+    (mono/pipeline.py of the port or of the JAX package) calls adds its
+    seconds to `seconds` and keeps its arguments in `calls`, and every
+    `polish_consensus` of `consensus_module` appends its result to
+    `polished`."""
+    saved = {name: getattr(pipeline_module, name) for name in MONO_STAGES}
+    polish = consensus_module.polish_consensus
+
+    def wrap(name, fn):
+        def stage(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            calls[name] = args
+            return out
+        return stage
+
+    def polish_one(*args, **kwargs):
+        out = polish(*args, **kwargs)
+        polished.append(out)
+        return out
+    for name, fn in saved.items():
+        setattr(pipeline_module, name, wrap(name, fn))
+    consensus_module.polish_consensus = polish_one
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(pipeline_module, name, fn)
+        consensus_module.polish_consensus = polish
+
+
+def pseudounit_divergence(world, polish_args, polished, n_iter):
+    """Each polished pseudounit against the array's nucleotides of the
+    same monomers (NW, native): the scaffolds' places in the array, and
+    per pseudounit its edits and length. `polish_args` are
+    polish_scaffolds' (scaffolds, pseudounits, read_pseudounits, ...),
+    `polished` its polish_consensus results in call order."""
+    scaffolds, pseudounits, read_pseudounits = polish_args[:3]
+    at = [find_run(world.syms, s) for s in scaffolds]
+    units, it = [], iter(polished)
+    for i, scaf_units in enumerate(pseudounits):
+        for j, (s_st, s_en) in enumerate(scaf_units):
+            if j >= len(read_pseudounits[i]) or not read_pseudounits[i][j]:
+                continue
+            seq = next(it)[n_iter]
+            if at[i] < 0:
+                continue
+            truth = decode(world.arr[world.bounds[at[i] + s_st]:
+                                     world.bounds[at[i] + s_en + 1]])
+            units.append((_edit_distance(seq, truth), len(truth)))
+    check(next(it, None) is None, "unmatched polish_consensus calls")
+    return at, units
+
+
+def phase_cen6_pipeline(world, background, dev, outdir, rate,
+                        want=(CEN6_SCAFFOLD_DIGEST, CEN6_IDB_DIGEST)):
+    """The cen6 path on the card at cen6's array size (`cen6_world`):
+    `recruit_file` with the D6Z1 unit at CEN6_THRESHOLD on a reads file
+    of the world's reads and `background` (K1 in the fused step), then
+    `MonoPipeline(MonoConfig(), outdir, device=dev)`: `decompose` on the
+    recruited reads (K4, one launch a lockstep step) and `run` (error
+    correction, the k = 100..400 de Bruijn sweep, scaffolding and the
+    automatic join, pseudounit polishing). Fails unless K1 and K4
+    launched, the recruited set is the world's reads and equals the
+    exact tier's (prefilter off), the call accuracy on '+' reads is at
+    least CEN6_MIN_ACCURACY, every scaffold is an exact run of the
+    array's symbols, the polished pseudounits are within
+    CEN6_MAX_DIVERGENCE of the array over the same monomers, and the
+    sha256 of polishing/scaffold_0/scaffold_0.fasta and of idb/ (every
+    file, `tree_digest`) are those in `want` (the JAX package's files
+    for this world, tools/cen6_vs_jax.py; None skips one). Prints each
+    stage's seconds, the decomposition's rate, steps and K4's device
+    time on a sample of steps, and the peak device memory. K1 on one of
+    recruitment's fused steps must equal its plain version
+    (`hold_fused_k1`, m = 3222). Returns the launches, K1's instance, the
+    SDReport and the phase's line."""
+    t0 = time.perf_counter()
+    reads_fn = os.path.join(outdir, "reads.fasta")
+    cen_fn = os.path.join(outdir, "cen_reads.fasta")
+    seqs = dict(world.reads)
+    seqs.update(background)
+    write_seqs(reads_fn, seqs)
+    mbp = sum(map(len, seqs.values())) / 1e6
+    del seqs
+    world_ids = {r for r, _ in world.reads}
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    t = time.perf_counter()
+    with captured_fused_k1() as captured:
+        n_rec = recruit_file(D6Z1_FASTA, reads_fn, cen_fn, CEN6_THRESHOLD,
+                             device=dev)
+    torch.cuda.synchronize()
+    seconds["recruitment"] = time.perf_counter() - t
+    k1_launches = myers_hw_2strand.launches
+    t = time.perf_counter()
+    fused, k1_instance = hold_fused_k1(captured, len(read_seq(D6Z1_FASTA)),
+                                       rate, CEN6_THRESHOLD, "cen6_pipeline")
+    fused["seconds"] = time.perf_counter() - t
+    del captured
+    recruited = list(iter_seqs(cen_fn))
+    t = time.perf_counter()
+    exact = RecruitmentEngine(read_seq(D6Z1_FASTA), RecruitmentConfig(
+        threshold=CEN6_THRESHOLD, prefilter=False), device=dev)
+    exact_set = {r.r_id for r in exact.run(iter_seqs(reads_fn))
+                 if r.recruited}
+    exact_s = time.perf_counter() - t
+    rec_ids = {r for r, _ in recruited}
+
+    pipe = MonoPipeline(MonoConfig(), outdir, device=dev)
+    # every K4_SAMPLE_EVERY-th step's K4 launch, queued behind a spin so
+    # that its events time the device's work alone
+    events, queued, calls = [], [], [0]
+    perrow = string_decomposer.myers_perrow
+
+    def timed_perrow(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] % K4_SAMPLE_EVERY:
+            return perrow(*args, **kwargs)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        out = perrow(*args, **kwargs)
+        queued.append(not e0.query())
+        e1.record()
+        events.append((e0, e1))
+        return out
+    string_decomposer.myers_perrow = timed_perrow
+    t = time.perf_counter()
+    try:
+        sd = pipe.decompose(world.monomers, recruited)
+    finally:
+        string_decomposer.myers_perrow = perrow
+    torch.cuda.synchronize()
+    seconds["decomposition"] = time.perf_counter() - t
+    # the device's time of the samples the host queued ahead of the card
+    # (a host stall longer than the spin leaves a sample timing the host)
+    k4_ms = [e0.elapsed_time(e1) for (e0, e1), q in zip(events, queued)
+             if q]
+    launches = {"k1": k1_launches, **{k: kernel.launches
+                                      for k, kernel in KERNELS.items()
+                                      if k != "k1"}}
+    calls, correct, flipped = call_accuracy(world, sd)
+    stage_s, stage_calls, polished = {}, {}, []
+    t = time.perf_counter()
+    with timed_mono(mono_pipeline, consensus, stage_s, stage_calls,
+                    polished):
+        asm = pipe.run(sd, dict(recruited))
+    run_s = time.perf_counter() - t
+    seconds.update(stage_s)
+    seconds["run_other"] = run_s - sum(stage_s.values())
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    at, units = pseudounit_divergence(world,
+                                      stage_calls["polish_scaffolds"],
+                                      polished, pipe.config.polish_n_iter)
+    edits = sum(e for e, _ in units)
+    span = sum(n for _, n in units)
+    covered = np.zeros(len(world.syms), bool)
+    for p, s in zip(at, asm.scaffolds_mono):
+        if p >= 0:
+            covered[p:p + len(s)] = True
+    scaffold_fn = os.path.join(outdir, "polishing", "scaffold_0",
+                               "scaffold_0.fasta")
+    digests = {"scaffold_0": sha256_of(scaffold_fn) if os.path.exists(
+        scaffold_fn) else None,
+               "idb": tree_digest(os.path.join(outdir, "idb"))}
+    out = {"phase": "cen6_pipeline", "reads_mbp": mbp,
+           "world_reads": len(world_ids), "background_reads":
+           len(background), "recruited": n_rec,
+           "exact_tier_equal": rec_ids == exact_set,
+           "exact_tier_seconds": exact_s, "launches": launches,
+           "decomposition_bp_per_s": sum(len(s) for _, s in recruited)
+           / seconds["decomposition"], "decomposition_steps":
+           launches["k4"], "k4_sampled_steps": len(events),
+           "k4_sampled_queued": len(k4_ms),
+           "k4_ms_mean": float(np.mean(k4_ms)) if k4_ms else None,
+           "k4_ms_max": max(k4_ms, default=None),
+           "k1_fused_step": fused,
+           "monostrings": len(sd.monostrings), "calls": calls,
+           "call_accuracy": correct / max(calls, 1),
+           "plus_reads_flipped": flipped,
+           "scaffolds": [len(s) for s in asm.scaffolds_mono],
+           "scaffold_at": at, "array_monomers": len(world.syms),
+           "recovered_frac": float(covered.mean()),
+           "pseudounits": len(units), "pseudounit_edits": edits,
+           "pseudounit_bp": span, "divergence": edits / max(span, 1),
+           "pseudounit_max_divergence": max(
+               (e / n for e, n in units), default=0.0),
+           "scaffold_bp": [len(s) for s in asm.scaffolds_nucl],
+           "stage_seconds": seconds, "run_seconds": run_s,
+           "check_seconds": time.perf_counter() - t,
+           "max_memory_allocated": peak, "sha256": digests,
+           "equal_jax": {k: None if w is None else digests[k] == w
+                         for k, w in zip(digests, want)},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(launches["k1"] > 0, "cen6 recruitment launched K1 no time")
+    check(launches["k4"] > 0, "the cen6 decomposition launched K4 no time")
+    check(len(k4_ms) >= 0.9 * len(events) > 0, f"{len(k4_ms)} of "
+          f"{len(events)} sampled K4 launches queued ahead of the device")
+    check(rec_ids == world_ids,
+          f"recruited: {len(world_ids - rec_ids)} world reads missed, "
+          f"{len(rec_ids - world_ids)} other reads taken")
+    check(rec_ids == exact_set, f"recruited != the exact tier's set: "
+          f"{sorted(rec_ids ^ exact_set)[:10]}")
+    check(calls and correct >= CEN6_MIN_ACCURACY * calls,
+          f"call accuracy {correct}/{calls}")
+    check(asm.scaffolds_mono and min(at) >= 0,
+          f"scaffolds not exact runs of the array: at {at}")
+    check(units and edits <= CEN6_MAX_DIVERGENCE * span,
+          f"pseudounits: {edits} edits over {span} bp")
+    for (name, got), w in zip(digests.items(), want):
+        check(w is None or got == w,
+              f"{name} differs from the JAX package's files for this world")
+    return launches, k1_instance, sd, out
+
+
+MONO_FRESH_UNITS = 6        # tests/test_mono_e2e.py's world
+MONO_FRESH_LEN = 60
+
+
+def mono_fresh_world():
+    """tests/test_mono_e2e.py's world and reads: 6 random 60-bp monomers,
+    40 HOR copies with 14 variant positions (seed 11); reads of 12
+    monomers every 4, every third reverse-complemented, 3% noise (seed
+    21). -> (monomers, genome symbols, genome, reads)."""
+    rng = np.random.default_rng(11)
+    monomers = {f"m{i}": gen_random_seq(rng, MONO_FRESH_LEN)
+                for i in range(MONO_FRESH_UNITS)}
+    mono_seqs = list(monomers.values())
+    syms = np.array(list(range(MONO_FRESH_UNITS)) * 40, np.int16)
+    for pos in rng.choice(len(syms), size=14, replace=False):
+        cur = int(syms[pos])
+        choices = [x for x in range(MONO_FRESH_UNITS) if x != cur]
+        syms[pos] = choices[int(rng.integers(0, MONO_FRESH_UNITS - 1))]
+    g = "".join(mono_seqs[int(s)] for s in syms)
+    rng = np.random.default_rng(21)
+    reads, i = {}, 0
+    read_len, stride = 12 * MONO_FRESH_LEN, 4 * MONO_FRESH_LEN
+    for start in range(0, len(g) - read_len + 1, stride):
+        seq = g[start:start + read_len]
+        if i % 3 == 1:
+            seq = revcomp_str(seq)
+        reads[f"r{i:03d}"] = add_read_noise(rng, seq, 0.03)
+        i += 1
+    return monomers, syms, g, reads
+
+
+def mono_fresh_config():
+    """tests/test_mono_e2e.py's MonoConfig."""
+    return MonoConfig(min_k=3, max_k=8, min_mult=3, polish_n_iter=2,
+                      hor_min_mult=200, min_uniq_len=6, max_uniq_cov=100,
+                      cut_min_length=8)
+
+
+def phase_cen6_fresh(dev):
+    """MonoPipeline at tests/test_mono_e2e.py's world and config
+    (`mono_fresh_world`, `mono_fresh_config`), its decomposer and its
+    run, on the card and on the CPU: the SDReports equal, every file
+    equal, K4 launched."""
+    t0 = time.perf_counter()
+    monomers, _, _, reads = mono_fresh_world()
+    files, sds, seconds = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            out = os.path.join(tmp, where)
+            t = time.perf_counter()
+            myers_perrow.launches = 0
+            pipe = MonoPipeline(mono_fresh_config(), out, device=d)
+            sd = pipe.decompose(monomers, reads.items())
+            pipe.run(sd, reads)
+            seconds[where] = {"seconds": time.perf_counter() - t,
+                              "k4_launches": myers_perrow.launches}
+            sds[where] = {r: (m.syms.tolist(), m.nucl.tolist(), m.strand)
+                          for r, m in sd.monostrings.items()}
+            files[where] = {
+                os.path.relpath(os.path.join(r, n), out): sha256_of(
+                    os.path.join(r, n))
+                for r, _, names in os.walk(out) for n in names}
+    same = files["card"] == files["cpu"]
+    emit({"phase": "cen6_fresh", "reads": len(reads),
+          "files": len(files["card"]), "identical": same,
+          "sd_equal": sds["card"] == sds["cpu"], "runs": seconds,
+          "seconds": time.perf_counter() - t0})
+    check(seconds["card"]["k4_launches"] > 0,
+          "cen6_fresh: the card's run launched K4 no time")
+    check(sds["card"] == sds["cpu"], "cen6_fresh: the SD records differ")
+    check(same and any(f.startswith("polishing") for f in files["card"]),
+          f"cen6_fresh: the card's files differ from the CPU's: "
+          f"{sorted(k for k in files['card'] if files['card'][k] != files['cpu'].get(k))}")
+
+
 def valid_score(cfg, score0, score1):
     """The placement rule (stages/placement_fast.FastPlacer._valid_key)."""
     return (score1 >= 1 and score0 >= cfg.min_unit
@@ -1777,6 +2429,7 @@ def main():
     k1, k1_state = phase_k1(encode(unit), dev, rate)
     k2 = phase_k2(k1_state, k1["ms"], m, rate)
     k3 = phase_k3(encode(unit), dev, k1["ms"], k2["ms"], rate)
+    k4 = phase_k4(dev, rate)
     reads, recruited, launches, batches, overlap = phase_main_path(unit, dev)
     phase_cli(reads, recruited, dev)
     ops_launches, at_2048 = phase_myers_ops(unit, reads, recruited, batches,
@@ -1796,16 +2449,32 @@ def main():
         background = [(r, s) for r, s in reads if r not in recruited]
         pipeline_launches, k1_pipeline, _ = phase_cenx_pipeline(
             unit, world, background, dev, outdir, rate)
+    del world
+    phase_cen6_fresh(dev)
+    t = time.perf_counter()
+    world6 = cen6_world()
+    emit({"phase": "cen6_world", "reads": len(world6.reads),
+          "mbp": sum(len(s) for _, s in world6.reads) / 1e6,
+          "array_monomers": len(world6.syms),
+          "array_bp": int(world6.bounds[-1]),
+          "seconds": time.perf_counter() - t})
+    with tempfile.TemporaryDirectory() as outdir:
+        cen6_launches, k1_cen6, _, _ = phase_cen6_pipeline(
+            world6, reads, dev, outdir, rate)
     for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kernel.setdefault("instances", {}).update(at_2048[key])
     k1["instances"].update(k1_pipeline)
+    k1["instances"].update(k1_cen6)
     k1["max_abs_err"] = max(k1["max_abs_err"], *(
-        i["max_abs_err"] for i in k1_pipeline.values()))
+        i["max_abs_err"] for i in (*k1_pipeline.values(),
+                                   *k1_cen6.values())))
     by_path = {"k1": {"main_path": launches},
                "k2": {"myers_ops": ops_launches["k2"]},
-               "k3": {"myers_ops": ops_launches["k3"]}}
+               "k3": {"myers_ops": ops_launches["k3"]}, "k4": {}}
     for key, n in pipeline_launches.items():
         by_path[key]["cenx_pipeline"] = n
+    for key, n in cen6_launches.items():
+        by_path[key]["cen6_pipeline"] = n
     emit({"kernels": [
         {"name": "myers_hw_2strand", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K1_REPLACES,
@@ -1817,7 +2486,11 @@ def main():
         {"name": "myers_hw_v3_banded", "route": "cuda",
          "source": f"{CSRC}/myers_hw_banded.cu", "replaces": K3_REPLACES,
          "launches": ops_launches["k3"], "launches_by_path": by_path["k3"],
-         **k3}]})
+         **k3},
+        {"name": "myers_perrow", "route": "cuda",
+         "source": f"{CSRC}/myers_perrow.cu", "replaces": K4_REPLACES,
+         "launches": cen6_launches["k4"], "launches_by_path": by_path["k4"],
+         **k4}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -151,7 +151,6 @@ def test_hold_fused_k1_takes_a_mixed_full_batch(monkeypatch):
 
     import chip_smoke as cs
     monkeypatch.setattr(cs, "PIPELINE_SEG_LEN", 512)
-    monkeypatch.setattr(cs, "THRESHOLD", 10)
     monkeypatch.setattr(cs, "time_cuda", lambda fn, reps: fn() and 0.0)
     monkeypatch.setattr(cs, "timed_plain", lambda fn: (fn(), 0.0))
     rng = np.random.default_rng(3)
@@ -166,9 +165,64 @@ def test_hold_fused_k1_takes_a_mixed_full_batch(monkeypatch):
             lens[:] = L
         return pf, pr, codes, lens.clamp(max=lens_cap)
     captured = [batch(L - 1, False), batch(L, True), batch(L, False)]
-    fields, instance = cs.hold_fused_k1(captured, m, rate=1e13)
+    fields, instance = cs.hold_fused_k1(captured, m, 1e13, 10,
+                                        "cenx_pipeline")
     assert list(instance) == [f"{B}x512 cenx_pipeline fused step"]
     assert fields["max_abs_err"] == 0 and fields["rows"] == B
+    assert fields["m"] == m and fields["mixed_band"]
     assert fields["sum_lens"] == int(captured[2][3].sum())
     assert 0 < fields["rows_in_band"] < B
     assert fields["batches_captured"] == 3
+
+
+def test_cen6_world_is_the_bench_shape():
+    """chip_smoke's copies of benchmarks/bench_mono_cen6.py's array and
+    read-length mix give the bench's draws, bit for bit; the world's
+    reads lie on the array (a '+' read's source, through `add_noise`'s
+    cum, covers its monomers)."""
+    sys.path.insert(0, os.path.join(REPO, "benchmarks"))
+    import bench_mono_cen6 as bench
+    import chip_smoke as cs
+    for seed in (0, 23):
+        a, b = np.random.default_rng(seed), np.random.default_rng(seed)
+        assert np.array_equal(cs.build_symbol_genome(a, 40, 18),
+                              bench.build_symbol_genome(b, 40))
+        assert np.array_equal(cs.cen6_length_mix(a, 500),
+                              bench.read_length_mix(b, 500))
+    world = cs.cen6_world(n_hor=4, coverage=30)
+    assert len(world.syms) == 72 and world.bounds[-1] == world.arr.size
+    assert world.truth and set(world.truth) < {r for r, _ in world.reads}
+    for r_id, (a, cum) in world.truth.items():
+        assert 0 <= a < world.arr.size and cum[-1] == len(dict(
+            world.reads)[r_id])
+
+
+def test_cen6_checks_on_an_exact_decomposition():
+    """call_accuracy, find_run and tree_digest on the CPU: two
+    noise-free reads of a 3-HOR world decomposed by the port's
+    decomposer score every call right; a scaffold that is a slice of the
+    array is found where it starts, one that is not gives -1; the tree
+    digest moves with a file's bytes."""
+    import tempfile
+
+    import chip_smoke as cs
+    from centroflye_tpu_torch.mono.string_decomposer import (
+        decompose_to_monostrings)
+    world = cs.cen6_world(n_hor=3, coverage=1)
+    reads = [("p0", cs.decode(world.arr[:4000])),
+             ("p1", cs.decode(world.arr[1000:5000]))]
+    world.truth = {r: (a, np.arange(4001)) for r, a in
+                   (("p0", 0), ("p1", 1000))}
+    sd = decompose_to_monostrings(world.monomers, reads, device="cpu")
+    calls, correct, flipped = cs.call_accuracy(world, sd)
+    assert calls > 40 and correct == calls and flipped == 0
+    assert cs.find_run(world.syms, world.syms[5:30]) == 5
+    assert cs.find_run(world.syms, np.array([99, 98], np.int16)) == -1
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "a.dot"), "w") as f:
+            f.write("digraph {}\n")
+        first = cs.tree_digest(d)
+        assert cs.tree_digest(d) == first
+        with open(os.path.join(d, "a.dot"), "a") as f:
+            f.write(" ")
+        assert cs.tree_digest(d) != first
