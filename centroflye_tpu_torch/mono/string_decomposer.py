@@ -15,10 +15,21 @@ onto the monomer phase; the later steps run in SHW mode (anchored start,
 free end).
 
 Each step is one call of `ops/myers_cuda.myers_perrow`: kernel K4 on the
-card, its plain version (`ops/myers.myers_distance_batch`) on the CPU.
-The host work of a step is numpy over the whole batch (the windows cut
-from one code plane, the calls applied to every active read at once), and
-the records equal the JAX package's row for row.
+card, its plain version (`ops/myers.myers_distance_batch`) on the CPU. A
+later step scores only the active reads' windows and chooses each one's
+call on the device, so it reads back three int32 a window; the first
+step reads back every score and chooses on the host. The host work of a
+step is numpy over the whole batch (the windows cut from one code plane,
+the calls applied to every active read at once), and the records equal
+the JAX package's row for row.
+
+The lockstep batch is sized for the card, not for the host: a read's
+chain of steps reads only its own codes and position, so its records do
+not depend on which reads share its batch, and the port's default batch
+(4,096 reads, 147,456 rows at 36 queries) puts a whole recruited read set
+into one launch a step, enough rows to fill the card's SMs, where the
+JAX package's 32 reads ran many short launches. The steps of a batch are
+as many as its longest read has records.
 
 Output rows are (monomer_sym, r_st, r_en, reliability) per read, the
 information of the SD TSV, for SDReport.from_decomposition.
@@ -41,8 +52,9 @@ from centroflye_tpu_torch.ops.myers_cuda import myers_perrow, perrow_queries
 class MonomerDecomposerConfig:
     # reliability: best distance <= max_divergence * monomer_len -> '+'
     max_divergence: float = 0.45
-    # lockstep batch of reads
-    batch_reads: int = 32
+    # lockstep batch of reads: sized to fill the card (the records do not
+    # depend on it; the JAX package's default is 32)
+    batch_reads: int = 4096
     # window slack beyond the longest monomer
     slack: int = 64
 
@@ -90,17 +102,12 @@ class MonomerDecomposer:
         return ({k: v.cpu().numpy() for k, v in out.items()},
                 windows.shape[0], 2 * self.n)
 
-    def _step(self, windows: np.ndarray, lens: np.ndarray, mode: str):
-        """One lockstep alignment step: windows (R, window) int8 ->
-        per-read best (query_index, dist, end)."""
-        out, R, Q = self._device_batch(windows, lens, mode)
-        dist = out["dist"].reshape(R, Q)
-        end = out["end"].reshape(R, Q)
-        # normalized distance for fair comparison across monomer lengths
-        norm = dist / np.maximum(self.ms[None, :], 1)
-        best_q = np.argmin(norm, axis=1)
-        rows = np.arange(R)
-        return best_q, dist[rows, best_q], end[rows, best_q]
+    def _step(self, windows: np.ndarray, lens: np.ndarray):
+        """One lockstep SHW step: windows (R, window) int8 -> each
+        window's (query_index, dist, end), chosen on the device: the query
+        of least dist over its length, the first on ties."""
+        out, _, _ = self._device_batch(windows, lens, "SHW", collect="call")
+        return out["q"], out["dist"], out["end"]
 
     def _first_step(self, windows: np.ndarray, lens: np.ndarray,
                     tol: float = 0.05):
@@ -164,7 +171,8 @@ class MonomerDecomposer:
         plane = np.full(int(r_lens.sum()) + R * Wlen, PAD, np.int8)
         for r, c in enumerate(codes):
             plane[offs[r]:offs[r] + len(c)] = c
-        cols = np.arange(Wlen)
+        # every window a read can reach, as a strided view of the plane
+        starts = np.lib.stride_tricks.sliding_window_view(plane, Wlen)
         pos = np.zeros(R, np.int64)
         steps = []          # per step: (reads, sym, r_st, r_en, reliable)
         first = True
@@ -174,16 +182,15 @@ class MonomerDecomposer:
             act = np.nonzero(pos + min_tail <= r_lens)[0]
             if len(act) == 0:
                 break
-            windows = np.full((R, Wlen), PAD, np.int8)
-            wlens = np.zeros(R, np.int32)
-            windows[act] = plane[(offs[act] + pos[act])[:, None] + cols]
-            wlens[act] = np.minimum(Wlen, r_lens[act] - pos[act])
+            # the active reads' windows only
+            windows = starts[offs[act] + pos[act]]
+            wlens = np.minimum(Wlen, r_lens[act] - pos[act]).astype(np.int32)
             if first:
                 best_q, dist, end = self._first_step(windows, wlens)
             else:
-                best_q, dist, end = self._step(windows, wlens, "SHW")
-            q = best_q[act].astype(np.int64)
-            d, e, p = dist[act], end[act].astype(np.int64), pos[act]
+                best_q, dist, end = self._step(windows, wlens)
+            q, d, e = best_q.astype(np.int64), dist, end.astype(np.int64)
+            p = pos[act]
             mlen = self.ms[q].astype(np.int64)
             if first:
                 # free start: locate the instance start by its end

@@ -36,8 +36,7 @@ SIGNATURES = {
     "cf_myers_hw_banded": [_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
-    "cf_myers_perrow": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P],
+    "cf_myers_perrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -25,9 +25,10 @@ plain torch for the tests.
 
 K4, `myers_perrow`, scores every text window against every query of a
 set (the monomer decomposer's lockstep step: both strands of every
-monomer against each read's window), in SHW mode collecting (dist, end)
-or in HW mode collecting the score after every column. Its query set
-(`perrow_queries`) is checked and laid out once, not at every step.
+monomer against each read's window), in SHW mode choosing each window's
+call on the card (the query of least dist / m and its row's dist and
+end) or in HW mode collecting the score after every column. Its query
+set (`perrow_queries`) is checked and laid out once, not at every step.
 """
 
 from __future__ import annotations
@@ -431,10 +432,12 @@ def recruit_distances(peq_fwd, peq_rc, codes, lens, *, m: int):
 
 
 PERROW_MAX_WORDS = 8    # K4: m <= 256, vp and vn in one thread's registers
+PERROW_MAX_QUERIES = 256  # K4: a block holds 256 // Q whole windows
 MODES = {"HW": 0, "SHW": 1}
-# the decomposer's two calls: every later step (anchored start, best end)
-# and the first step (free start, the score after every column)
-PERROW_CALLS = (("SHW", "best"), ("HW", "all"))
+# the decomposer's two calls: every later step (anchored start, each
+# window's call: the query of least dist / m) and the first step (free
+# start, the score after every column)
+PERROW_CALLS = (("SHW", "call"), ("HW", "all"))
 
 
 class PerrowQueries(NamedTuple):
@@ -450,7 +453,8 @@ class PerrowQueries(NamedTuple):
 def perrow_queries(peqs, ms, *, m: int, device) -> PerrowQueries:
     """peqs: (Q, 5, W) int64 tensor of 32-bit words, W = n_words(m), each
     query's bits zero at and above its length; ms: (Q,) query lengths,
-    each in [1, m] (checked here, on the host). On the card m <= 256."""
+    each in [1, m] (checked here, on the host); Q >= 1. On the card
+    m <= 256 and Q <= 256."""
     device = torch.device(device)
     ms_host = torch.as_tensor(ms).cpu()
     W = n_words(m)
@@ -461,10 +465,13 @@ def perrow_queries(peqs, ms, *, m: int, device) -> PerrowQueries:
             or peqs.dtype != torch.int64:
         raise ValueError(f"peqs {peqs.dtype} {tuple(peqs.shape)}, "
                          f"expected int64 (Q, 5, {W})")
-    if ms_host.shape != (peqs.shape[0],):
-        raise ValueError(f"ms shape {tuple(ms_host.shape)} for "
-                         f"{peqs.shape[0]} queries")
-    if ms_host.numel() and bool(((ms_host < 1) | (ms_host > m)).any()):
+    Q = peqs.shape[0]
+    if Q < 1 or (device.type == "cuda" and Q > PERROW_MAX_QUERIES):
+        raise ValueError(f"{Q} queries: K4 takes 1 to "
+                         f"{PERROW_MAX_QUERIES}")
+    if ms_host.shape != (Q,):
+        raise ValueError(f"ms shape {tuple(ms_host.shape)} for {Q} queries")
+    if bool(((ms_host < 1) | (ms_host > m)).any()):
         raise ValueError(f"ms must lie in [1, {m}]")
     peqs = peqs.to(device).contiguous()
     return PerrowQueries(
@@ -472,36 +479,56 @@ def perrow_queries(peqs, ms, *, m: int, device) -> PerrowQueries:
         ms_host.to(device=device, dtype=torch.int32).contiguous(), m)
 
 
-def _check_call(mode, collect):
-    if (mode, collect) not in PERROW_CALLS:
+def _check_call(mode, collect, calls=PERROW_CALLS):
+    if (mode, collect) not in calls:
         raise ValueError(f"mode={mode!r}, collect={collect!r}: K4 runs "
-                         f"{PERROW_CALLS}")
+                         f"{calls}")
+
+
+def _choose_calls(dist, end, ms) -> dict:
+    """Each window's call from its rows: dist, end (R, Q) int32, ms (Q,)
+    -> {"q", "dist", "end"} (R,) int32 of the query with the least
+    dist / m, the first on ties: the quotients in float64, as the JAX
+    decomposer's np.argmin(dist / ms) (with dist, m <= 256 two distinct
+    quotients differ by at least 1/65,536 and two equal ones round
+    alike, so K4's cross-multiplied comparison picks the same query)."""
+    q = torch.argmin(dist.double() / ms.double(), dim=1, keepdim=True)
+    return {"q": q[:, 0].to(torch.int32), "dist": dist.gather(1, q)[:, 0],
+            "end": end.gather(1, q)[:, 0]}
 
 
 def myers_perrow_plain(queries: PerrowQueries, windows, wlens, *,
-                       mode="SHW", collect="best"):
+                       mode="SHW", collect="call"):
     """Plain PyTorch version of K4: the rows of `myers_perrow` laid out
     (windows repeated Q times, the queries tiled R times) and scored by
-    `myers_distance_batch`. Same arguments and outputs."""
-    _check_call(mode, collect)
+    `myers_distance_batch`. Same arguments and outputs; besides
+    PERROW_CALLS it gives SHW/best, every row's (dist, end) (R Q,), from
+    which "call" chooses (`_choose_calls`)."""
+    _check_call(mode, collect, PERROW_CALLS + (("SHW", "best"),))
     R, Q = windows.shape[0], queries.peqs.shape[0]
-    return myers_distance_batch(
+    out = myers_distance_batch(
         queries.peqs.repeat(R, 1, 1), windows.repeat_interleave(Q, dim=0),
         wlens.reshape(-1).repeat_interleave(Q), m=queries.m, mode=mode,
-        ms=queries.ms.repeat(R), collect=collect)
+        ms=queries.ms.repeat(R), collect="best" if collect == "call"
+        else collect)
+    if collect != "call":
+        return out
+    return _choose_calls(out["dist"].reshape(R, Q),
+                         out["end"].reshape(R, Q), queries.ms)
 
 
 def myers_perrow(queries: PerrowQueries, windows, wlens, *, mode="SHW",
-                 collect="best"):
+                 collect="call"):
     """Every window against every query: row r * Q + q is windows[r]
     (its first wlens[r] codes) against query q, the layout of
     `np.repeat(windows, Q)` beside `np.tile(peqs, R)`.
 
     queries: `perrow_queries(...)` on the windows' device; windows: (R, L)
     int8 codes; wlens: (R,) int32; (mode, collect) one of PERROW_CALLS:
-    "best" -> {"dist", "end"} (R Q,) int32, "all" -> {"scores"} (R Q, L)
-    int32, as `ops/myers.myers_distance_batch`. On a CUDA tensor it
-    launches K4 and synchronises nothing."""
+    "call" -> {"q", "dist", "end"} (R,) int32, each window's query of least
+    dist / m (the first on ties) and its row's SHW (dist, end); "all" ->
+    {"scores"} (R Q, L) int32, as `ops/myers.myers_distance_batch`.
+    On a CUDA tensor it launches K4 and synchronises nothing."""
     _check_call(mode, collect)
     dev = windows.device
     if dev.type == "cpu":
@@ -520,11 +547,10 @@ def myers_perrow(queries: PerrowQueries, windows, wlens, *, mode="SHW",
     lib = load_library()
     if collect == "all":
         scores = torch.empty((R * Q, L), dtype=torch.int32, device=dev)
-        ptrs = (None, None, scores.data_ptr())
+        ptrs = (None, scores.data_ptr())
     else:
-        dist = torch.empty(R * Q, dtype=torch.int32, device=dev)
-        end = torch.empty(R * Q, dtype=torch.int32, device=dev)
-        ptrs = (dist.data_ptr(), end.data_ptr(), None)
+        call = torch.empty((3, R), dtype=torch.int32, device=dev)
+        ptrs = (call.data_ptr(), None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.cf_myers_perrow(
@@ -533,8 +559,9 @@ def myers_perrow(queries: PerrowQueries, windows, wlens, *, mode="SHW",
             MODES[mode], int(collect == "all"), stream)
     _raise_on(rc, "cf_myers_perrow")
     myers_perrow.launches += 1
-    return {"scores": scores} if collect == "all" else {"dist": dist,
-                                                        "end": end}
+    if collect == "all":
+        return {"scores": scores}
+    return {"q": call[0], "dist": call[1], "end": call[2]}
 
 
 myers_perrow.launches = 0

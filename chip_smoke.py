@@ -56,8 +56,11 @@ final_assembly.fasta and unit_star.fasta the JAX package's files
 
 Then cen6 (centroFlyeMono). Phase k4 holds K4, the per-row-query Myers
 kernel of the monomer decomposer's lockstep step, against its plain
-version at that step's shape (the 18 D6Z1 monomers on both strands
-against 32 windows of 237 columns) and at m = 1..256 against the CPU;
+version in both of the decomposer's calls (each window's call chosen on
+the card; every score of the first step) at two steps of it (the 18
+D6Z1 monomers on both strands against 32 windows of 237 columns, and
+against 1,024, a full lockstep batch) in every launch variant, and at
+m = 1..256 and on exact quotient ties against the CPU;
 phase k1 also holds K1 at the D6Z1 unit (m = 3222). Phase cen6_fresh
 runs `MonoPipeline` (decomposer and run) at tests/test_mono_e2e.py's
 small world on the card and on the CPU: every file equal. Phase
@@ -107,14 +110,15 @@ from centroflye_tpu_torch.mono import pipeline as mono_pipeline
 from centroflye_tpu_torch.mono import string_decomposer
 from centroflye_tpu_torch.mono.monostring import GAP
 from centroflye_tpu_torch.mono.pipeline import MonoPipeline
-from centroflye_tpu_torch.mono.string_decomposer import MonomerDecomposer
+from centroflye_tpu_torch.mono.string_decomposer import (
+    MonomerDecomposer, MonomerDecomposerConfig)
 from centroflye_tpu_torch.ops import _build, fused_recruit, scoring
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import (
-    GROUPS, BandedRun, banded_plan, myers_hw_2strand, myers_hw_2strand_plain,
-    PERROW_CALLS, myers_hw_v3, myers_hw_v3_banded, myers_hw_v3_plain,
-    myers_perrow, myers_perrow_plain, perrow_queries, pick_group,
-    threshold_hw)
+    GROUPS, PERROW_CALLS, BandedRun, banded_plan, myers_hw_2strand,
+    myers_hw_2strand_plain, myers_hw_v3, myers_hw_v3_banded,
+    myers_hw_v3_plain, myers_perrow, myers_perrow_plain, perrow_queries,
+    pick_group, threshold_hw)
 from centroflye_tpu_torch.pipeline.cenx import (CenXPipeline,
                                                 run_placement,
                                                 run_placement_validation,
@@ -224,6 +228,9 @@ CEN6_SCAFFOLD_DIGEST = (
 CEN6_IDB_DIGEST = (
     "6dcdda072e20bc3f8d88df8655c41effbb04368749a232ef4e220a97983de314")
 K4_REPS = 50
+# K4's shapes in phase k4: a step of 32 windows (the JAX package's batch)
+# and of 1,024 (a full lockstep batch of cen6's reads)
+K4_WINDOWS = (32, 1024)
 K4_SAMPLE_EVERY = 16      # every 16th decomposer step timed on the device
 SPIN_CYCLES = 400_000     # a spin of about 0.2 ms queued ahead of a timing
 K4_SMALL_M = (1, 31, 32, 33, 64, 256)
@@ -1874,26 +1881,28 @@ def k4_rows(rng, monomers, R, Wlen, dev):
     return (torch.from_numpy(windows).to(dev), torch.from_numpy(wlens).to(dev))
 
 
-def perrow_bound(wlens, L, Q, words, rate, collect="best"):
+def perrow_bound(wlens, L, Q, words, rate, collect="call"):
     """(bound_ms, bound_by) of one K4 call: every window's first
     min(wlens, L) columns against Q queries of `words` words
     (OPS_PER_WORD_COLUMN each), against the bytes read once (windows,
-    lengths, peq tables and query lengths) and written once (dist and
-    end of each row, or with collect="all" its L scores)."""
+    lengths, peq tables and query lengths) and written once (each
+    window's call, 12 bytes, or with collect="all" every row's L
+    scores)."""
     n = int(wlens.clamp(0, L).sum())
     ops = OPS_PER_WORD_COLUMN * words * n * Q
     R = wlens.numel()
-    out_bytes = 8 * R * Q if collect == "best" else 4 * R * Q * L
+    out_bytes = 12 * R if collect == "call" else 4 * R * Q * L
     nbytes = R * L + 4 * R + Q * (5 * 4 * words + 4) + out_bytes
     op_ms, byte_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
 
-def k4_small(rng, m, dev):
-    """Queries of lengths in [1, m] (m among them) and windows of m + 40
-    columns (ragged, one of length 0, one holding a query's copy), as the
-    decomposer lays them out: -> (queries, windows, wlens) on `dev`."""
-    Q, R, L = 5, 7, m + 40
+def k4_small(rng, m, dev, Q=5, R=7, L=None):
+    """Q queries of lengths in [1, m] (m among them) and R windows of L
+    columns (m + 40 by default; ragged, one of length 0, one holding a
+    query's copy), as the decomposer lays them out: -> (queries,
+    windows, wlens) on `dev`."""
+    L = m + 40 if L is None else L
     qlens = np.concatenate([[m], rng.integers(1, m + 1, Q - 1)])
     queries = [rng.integers(0, 4, int(n)).astype(np.int8) for n in qlens]
     peqs = np.stack([build_peq(q, m=m) for q in queries])
@@ -1906,6 +1915,55 @@ def k4_small(rng, m, dev):
             torch.from_numpy(windows).to(dev), torch.from_numpy(wlens).to(dev))
 
 
+def mutate(rng, codes, n, lo, hi):
+    """codes with n substitutions at distinct, spread positions in
+    [lo, hi), each to another base."""
+    out = codes.copy()
+    at = lo + (np.arange(n) * (hi - lo)) // n + rng.integers(0, 3, n)
+    out[at] = (out[at] + rng.integers(1, 4, n)) % 4
+    return out
+
+
+def k4_ties(rng, dev):
+    """Windows whose calls tie exactly in dist / m: query 0 is a random
+    170-mer A, query 1 its first 85 bases, then a random 170-mer and a
+    random 85-mer. Windows of 234 columns hold A with 10 substitutions, 5
+    of them in its first 85 bases (10/170 = 5/85: query 0 wins by being
+    first), 4 of them (query 1 wins), 6 of them (query 0 wins), the same
+    with fewer substitutions (2 and 1), A unchanged (0/170 = 0/85), and
+    all-N and zero-length windows (every query m/m). -> (queries,
+    windows, wlens) on `dev`."""
+    A = rng.integers(0, 4, 170).astype(np.int8)
+    qs = [A, A[:85], rng.integers(0, 4, 170).astype(np.int8),
+          rng.integers(0, 4, 85).astype(np.int8)]
+    L = 234
+    rows = []
+    for total, first in ((10, 5), (10, 4), (10, 6), (2, 1), (0, 0)):
+        for _ in range(4):
+            rows.append(np.concatenate([
+                mutate(rng, A[:85], first, 2, 83),
+                mutate(rng, A[85:], total - first, 2, 83),
+                rng.integers(0, 4, L - 170).astype(np.int8)]))
+    windows = np.stack(rows + [np.full(L, 4, np.int8)] * 2
+                       + [rng.integers(0, 4, L).astype(np.int8)] * 2)
+    wlens = np.full(len(windows), L, np.int32)
+    wlens[-2:] = 0
+    peqs = np.stack([build_peq(q, m=170) for q in qs])
+    return (perrow_queries(words_tensor(peqs, dev),
+                           np.array([len(q) for q in qs], np.int32),
+                           m=170, device=dev),
+            torch.from_numpy(windows).to(dev), torch.from_numpy(wlens).to(dev))
+
+
+def exact_ties(dist, ms):
+    """Windows whose least dist / m two or more queries reach: dist (R,
+    Q), ms (Q,) integer tensors (cross-multiplied, exact)."""
+    d, m = dist.long(), ms.long()
+    best = torch.argmin(d.double() / m.double(), dim=1)
+    bd, bm = d.gather(1, best[:, None]), m[best][:, None]
+    return int(((d * bm == bd * m).sum(1) > 1).sum())
+
+
 def k4_to_cpu(args):
     """K4's arguments (queries, windows, wlens) moved to the CPU."""
     queries, windows, wlens = args
@@ -1914,71 +1972,109 @@ def k4_to_cpu(args):
             windows.cpu(), wlens.cpu())
 
 
+def k4_tiled(rng, m, dev):
+    """`k4_small` at shapes whose columns K4 stages in several tiles: 2
+    queries against 1,000 windows of 2,100 columns (on 132 SMs, 8
+    windows a block and tiles of 16 KB / 8 = 2,048 columns), and at
+    m > 224 also 256 queries against 3 windows of 5,000 columns (one
+    window a block, whose tables leave tiles of 4,080 columns of the
+    block's 48 KB)."""
+    cases = [k4_small(rng, m, dev, Q=2, R=1000, L=2100)]
+    if m > 224:
+        cases.append(k4_small(rng, m, dev, Q=256, R=3, L=5000))
+    return cases
+
+
+def k4_against_plain(args, cpu=True):
+    """max_abs_err of K4 (both calls) against the plain version on the
+    same arguments, on the CPU or (cpu=False) on the card."""
+    plain_args = k4_to_cpu(args) if cpu else args
+    return max(max_abs_err(
+        myers_perrow(*args, mode=mode, collect=collect),
+        myers_perrow_plain(*plain_args, mode=mode, collect=collect))
+        for mode, collect in PERROW_CALLS)
+
+
 def phase_k4(dev, rate):
-    """K4 (`myers_perrow`) against its plain version on the card at the
-    decomposer's step: the real 18 D6Z1 monomers on both strands (36
-    queries, m = 173, W = 6) against batch_reads windows of the
-    decomposer's width (1,152 rows), in both of the decomposer's calls
-    (SHW/best, every later step; HW/all, the first step); then m in
-    K4_SMALL_M against the plain version on the CPU. max_abs_err must be
-    0. Prints K4's device ms for each call (launches queued ahead of the
-    device, `time_cuda`), the wrapper's host microseconds a call, its
-    bound and the plain version's ms."""
+    """K4 (`myers_perrow`) against its plain version on the card at two
+    steps of the monomer decomposer: the real 18 D6Z1 monomers on both
+    strands (36 queries, m = 173, W = 6) against K4_WINDOWS windows of
+    the decomposer's width, 32 (1,152 rows, the JAX package's batch) and
+    1,024 (36,864 rows, a full batch), in both of the
+    decomposer's calls (SHW/call, every later step; HW/all, the first
+    step); then m in K4_SMALL_M and the tie set (`k4_ties`) against the
+    plain version on the CPU, and the shapes K4 stages in several tiles
+    (`k4_tiled`) against the plain version on the card. max_abs_err must
+    be 0; the all-N window must give query 0's empty alignment. Prints,
+    for each shape and call, K4's device ms (launches queued ahead of
+    the device, `time_cuda`), its bound and share; the plain version's
+    ms and the wrapper's host microseconds a call."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(4)
     monomers = read_seqs(D6Z1_MONOMERS)
     dec = MonomerDecomposer(monomers, device=dev)
-    R = dec.config.batch_reads
-    windows, wlens = k4_rows(rng, monomers, R, dec.window, dev)
-    args = (dec.queries, windows, wlens)
-    err, plain, ms, host_us = 0, {}, {}, {}
-    for mode, collect in PERROW_CALLS:
-        call = f"{mode}/{collect}"
-        got = myers_perrow(*args, mode=mode, collect=collect)
-        want, plain[call] = timed_plain(
-            lambda: myers_perrow_plain(*args, mode=mode, collect=collect))
-        err = max(err, max_abs_err(got, want))
-        if call == "SHW/best":
-            shw = {k: v.cpu().reshape(R, -1) for k, v in got.items()}
-        ms[call] = time_cuda(lambda: myers_perrow(*args, mode=mode,
-                                                  collect=collect),
-                             reps=K4_REPS, must_queue=True)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(K4_REPS):
-            myers_perrow(*args, mode=mode, collect=collect)
-        host_us[call] = (time.perf_counter() - t) / K4_REPS * 1e6
-        torch.cuda.synchronize()
-    check(err == 0, f"K4 != plain at {R * dec.ms.size}x{dec.window}")
-    check(bool((shw["end"][6] == -1).all()
-               and (shw["dist"][6] == torch.from_numpy(dec.ms)).all()),
-          "an all-N window must give the empty alignment (m, -1)")
-    small_err = {}
-    for sm in K4_SMALL_M:
-        small = k4_small(rng, sm, dev)
-        small_err[sm] = max(max_abs_err(
-            myers_perrow(*small, mode=mode, collect=collect),
-            myers_perrow(*k4_to_cpu(small), mode=mode, collect=collect))
-            for mode, collect in PERROW_CALLS)
+    Q, Wlen, words = dec.ms.size, dec.window, dec.peqs.shape[2]
+    err, instances = 0, {}
+    for R in K4_WINDOWS:
+        windows, wlens = k4_rows(rng, monomers, R, Wlen, dev)
+        args = (dec.queries, windows, wlens)
+        for mode, collect in PERROW_CALLS:
+            call = f"{mode}/{collect}"
+            want, plain_ms = timed_plain(
+                lambda: myers_perrow_plain(*args, mode=mode, collect=collect))
+            bound_ms, bound_by = perrow_bound(wlens, Wlen, Q, words, rate,
+                                              collect)
+            row = {"windows": R, "rows": R * Q, "cols": Wlen,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            got = myers_perrow(*args, mode=mode, collect=collect)
+            err = max(err, max_abs_err(got, want))
+            if collect == "call":
+                check(int(got["q"][6]) == 0 and int(got["end"][6]) == -1
+                      and int(got["dist"][6]) == int(dec.ms[0]),
+                      "an all-N window must call query 0 at its empty "
+                      "alignment (m, -1)")
+            row["ms"] = time_cuda(lambda: myers_perrow(
+                *args, mode=mode, collect=collect),
+                reps=K4_REPS, must_queue=True)
+            row["share"] = bound_ms / row["ms"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(K4_REPS):
+                myers_perrow(*args, mode=mode, collect=collect)
+            row["host_us_per_call"] = ((time.perf_counter() - t) / K4_REPS
+                                       * 1e6)
+            torch.cuda.synchronize()
+            instances[f"{R * Q}x{Wlen} {call}"] = row
+    check(err == 0, f"K4 != plain at {K4_WINDOWS} windows x {Q} queries")
+    small_err = {sm: k4_against_plain(k4_small(rng, sm, dev))
+                 for sm in K4_SMALL_M}
     check(max(small_err.values()) == 0,
           f"K4 != the CPU plain version: {small_err}")
-    bounds = {f"{mode}/{collect}": perrow_bound(
-        wlens, dec.window, dec.ms.size, dec.peqs.shape[2], rate, collect)
-        for mode, collect in PERROW_CALLS}
-    bound_ms, bound_by = bounds["SHW/best"]
-    emit({"phase": "k4", "rows": R * dec.ms.size, "cols": dec.window,
-          "m": dec.max_m, "words": dec.peqs.shape[2], "max_abs_err": err,
-          "ms": ms, "host_us_per_call": host_us, "bound_ms": bounds,
-          "plain_ms": plain, "small_max_abs_err": small_err,
+    tiled_err = {sm: max(k4_against_plain(args, cpu=False)
+                         for args in k4_tiled(rng, sm, dev))
+                 for sm in K4_SMALL_M}
+    check(max(tiled_err.values()) == 0,
+          f"K4 != plain where it stages several tiles: {tiled_err}")
+    ties = k4_ties(rng, dev)
+    tie_err = k4_against_plain(ties)
+    best = myers_perrow_plain(*k4_to_cpu(ties), mode="SHW", collect="best")
+    n_ties = exact_ties(best["dist"].reshape(len(ties[1]), -1),
+                        ties[0].ms.cpu())
+    check(tie_err == 0, f"K4 != the CPU plain version on the tie set: "
+          f"{tie_err}")
+    check(n_ties >= 8, f"the tie set holds {n_ties} exact ties")
+    emit({"phase": "k4", "m": dec.max_m, "words": words, "queries": Q,
+          "max_abs_err": err, "instances": instances,
+          "small_max_abs_err": small_err, "tiled_max_abs_err": tiled_err,
+          "tie_windows": n_ties, "tie_max_abs_err": tie_err,
           "seconds": time.perf_counter() - t0})
-    shape = f"{R * dec.ms.size}x{dec.window}"
-    return {"max_abs_err": max(err, *small_err.values()),
-            "ms": ms["SHW/best"], "plain_ms": plain["SHW/best"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "instances": {f"{shape} {call}": {
-                "ms": ms[call], "plain_ms": plain[call],
-                "bound_ms": bounds[call][0],
-                "host_us_per_call": host_us[call]} for call in ms}}
+    main = instances[f"{K4_WINDOWS[0] * Q}x{Wlen} SHW/call"]
+    return {"max_abs_err": max(err, tie_err, *small_err.values(),
+                               *tiled_err.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "instances": instances}
 
 
 def build_symbol_genome(rng, n_hor, n_mono, variant_every=CEN6_VARIANT_EVERY):
@@ -2215,18 +2311,20 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
 
     pipe = MonoPipeline(MonoConfig(), outdir, device=dev)
     # every K4_SAMPLE_EVERY-th step's K4 launch, queued behind a spin so
-    # that its events time the device's work alone
-    events, queued, calls = [], [], [0]
+    # that its events time the device's work alone; each launch's windows
+    # and call
+    events, queued, calls, steps = [], [], [0], []
     perrow = string_decomposer.myers_perrow
 
-    def timed_perrow(*args, **kwargs):
+    def timed_perrow(queries, windows, *args, **kwargs):
         calls[0] += 1
+        steps.append((windows.shape[0], kwargs.get("collect")))
         if calls[0] % K4_SAMPLE_EVERY:
-            return perrow(*args, **kwargs)
+            return perrow(queries, windows, *args, **kwargs)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
-        out = perrow(*args, **kwargs)
+        out = perrow(queries, windows, *args, **kwargs)
         queued.append(not e0.query())
         e1.record()
         events.append((e0, e1))
@@ -2246,6 +2344,8 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     launches = {"k1": k1_launches, **{k: kernel.launches
                                       for k, kernel in KERNELS.items()
                                       if k != "k1"}}
+    batches = -(-len(recruited) // MonomerDecomposerConfig().batch_reads)
+    first_steps = sum(c == "all" for _, c in steps)
     calls, correct, flipped = call_accuracy(world, sd)
     stage_s, stage_calls, polished = {}, {}, []
     t = time.perf_counter()
@@ -2276,12 +2376,19 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
            len(background), "recruited": n_rec,
            "exact_tier_equal": rec_ids == exact_set,
            "exact_tier_seconds": exact_s, "launches": launches,
-           "decomposition_bp_per_s": sum(len(s) for _, s in recruited)
-           / seconds["decomposition"], "decomposition_steps":
-           launches["k4"], "k4_sampled_steps": len(events),
+           "decomposition_seconds": seconds["decomposition"],
+           "decomposition_mbp_per_s": sum(len(s) for _, s in recruited)
+           / seconds["decomposition"] / 1e6, "decomposition_steps":
+           launches["k4"], "decomposition_batches": batches,
+           "k4_windows_mean": float(np.mean([w for w, _ in steps]))
+           if steps else None,
+           "k4_windows_max": max((w for w, _ in steps), default=None),
+           "k4_sampled_steps": len(events),
            "k4_sampled_queued": len(k4_ms),
            "k4_ms_mean": float(np.mean(k4_ms)) if k4_ms else None,
            "k4_ms_max": max(k4_ms, default=None),
+           "k4_ms_total_estimate": float(np.mean(k4_ms)) * launches["k4"]
+           if k4_ms else None,
            "k1_fused_step": fused,
            "monostrings": len(sd.monostrings), "calls": calls,
            "call_accuracy": correct / max(calls, 1),
@@ -2303,6 +2410,9 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     emit(out)
     check(launches["k1"] > 0, "cen6 recruitment launched K1 no time")
     check(launches["k4"] > 0, "the cen6 decomposition launched K4 no time")
+    check(first_steps == batches and len(steps) == launches["k4"],
+          f"{first_steps} first steps (HW/all) for {batches} lockstep "
+          f"batches of {len(recruited)} reads")
     check(len(k4_ms) >= 0.9 * len(events) > 0, f"{len(k4_ms)} of "
           f"{len(events)} sampled K4 launches queued ahead of the device")
     check(rec_ids == world_ids,

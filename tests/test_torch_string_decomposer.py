@@ -2,13 +2,16 @@
 path: the plain version of kernel K4) against the JAX package's, on the
 same reads: equal records row for row, for exact, noisy and
 reverse-strand reads of tests/test_mono_e2e.py's world, the real D6Z1
-monomers on a 2-HOR read, lockstep batches of 1, 4 and 32 reads, and
-reads that make gap steps (no alignment progress). Also: K4's wrapper on
-the CPU equals the JAX package's `myers_distance_batch` on the
-decomposer's row layout (`np.repeat` of the windows beside `np.tile` of
-the queries), and `convert.decomposer_state_from_numpy` carries the JAX
-decomposer's tables into the port's. Tests marked `gpu` hold K4 against
-its plain version and the card's decomposer against the CPU's."""
+monomers on a 2-HOR read, lockstep batches of 1, 4 and 32 reads, the
+port's default and a batch larger than the read set, and reads that make
+gap steps (no alignment progress). Also: K4's wrapper on the CPU equals
+the JAX package's `myers_distance_batch` on the decomposer's row layout
+(`np.repeat` of the windows beside `np.tile` of the queries), its call
+(SHW/call) that layout's rows followed by numpy's argmin(dist / ms),
+also on exact quotient ties, and `convert.decomposer_state_from_numpy`
+carries the JAX decomposer's tables into the port's. Tests marked `gpu`
+hold K4 (both calls, also where it stages the columns in several tiles)
+against its plain version and the card's decomposer against the CPU's."""
 
 import os
 
@@ -52,13 +55,19 @@ def world():
     return monomers, syms, reads
 
 
-@pytest.mark.parametrize("batch_reads", [1, 4, 32])
+@pytest.mark.parametrize("batch_reads", [1, 4, 32, None, 7])
 def test_records_equal_jax(world, batch_reads):
+    """Lockstep batches of 1, 4 and 32 reads (the JAX decomposer at the
+    same batch), the port's default (4,096) and 7, one more than the
+    read set (the JAX decomposer at its default of 32)."""
     monomers, syms, reads = world
     want = JDecomposer(monomers, JConfig(batch_reads=batch_reads)
+                       if batch_reads in (1, 4, 32) else JConfig()
                        ).decompose(reads)
-    got = TDecomposer(monomers, TConfig(batch_reads=batch_reads),
-                      device="cpu").decompose(reads)
+    cfg = TConfig() if batch_reads is None else TConfig(
+        batch_reads=batch_reads)
+    assert batch_reads is not None or cfg.batch_reads == 4096
+    got = TDecomposer(monomers, cfg, device="cpu").decompose(reads)
     assert got == want
     assert list(got) == [r for r, _ in reads]
     assert [r[0] for r in got["exact"]] == syms[:20].tolist()
@@ -126,29 +135,83 @@ def test_state_from_the_jax_tables(world):
         decomposer_state_from_numpy(jdec.peqs, jdec.ms[:-1])
 
 
-@pytest.mark.parametrize("m", [1, 31, 32, 33, 64, 256])
-def test_perrow_plain_equals_jax_layout(m):
-    """K4's wrapper on CPU tensors (its plain version) gives the JAX
-    `myers_distance_batch` on the decomposer's layout, in both of the
-    decomposer's calls, on phase k4's small cases (`chip_smoke.k4_small`);
-    any other call raises."""
-    args = cs.k4_small(np.random.default_rng(m), m, "cpu")
+def jax_rows(args, mode, collect):
+    """The JAX `myers_distance_batch` on K4's row layout (`np.repeat` of
+    the windows beside `np.tile` of the queries), from K4's CPU
+    arguments."""
     queries, windows, wlens = args
     peqs = queries.peqs.numpy().astype(np.uint32)
     ms, windows, wlens = queries.ms.numpy(), windows.numpy(), wlens.numpy()
     R, Q = len(windows), len(peqs)
-    for mode, collect in PERROW_CALLS:
-        want = jmyers(np.tile(peqs, (R, 1, 1)), np.repeat(windows, Q, 0),
-                      np.repeat(wlens, Q), m=m, mode=mode,
-                      ms=np.tile(ms, R), collect=collect)
-        got = myers_perrow(*args, mode=mode, collect=collect)
+    return jmyers(np.tile(peqs, (R, 1, 1)), np.repeat(windows, Q, 0),
+                  np.repeat(wlens, Q), m=queries.m, mode=mode,
+                  ms=np.tile(ms, R), collect=collect)
+
+
+def jax_calls(args):
+    """Each window's call as the JAX decomposer chooses it: SHW rows,
+    then np.argmin(dist / ms) (the first on ties)."""
+    queries, windows, _ = args
+    rows = jax_rows(args, "SHW", "best")
+    ms = queries.ms.numpy()
+    dist = np.asarray(rows["dist"]).reshape(len(windows), -1)
+    end = np.asarray(rows["end"]).reshape(len(windows), -1)
+    q = np.argmin(dist / np.maximum(ms[None, :], 1), axis=1)
+    at = np.arange(len(q))
+    return {"q": q, "dist": dist[at, q], "end": end[at, q]}
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 64, 256])
+def test_perrow_plain_equals_jax_layout(m):
+    """K4's wrapper on CPU tensors (its plain version) gives the JAX
+    `myers_distance_batch` on the decomposer's layout: SHW/best rows
+    from the plain version, HW/all from the wrapper, and the wrapper's
+    SHW/call those rows' argmin(dist / ms), on phase k4's small cases
+    (`chip_smoke.k4_small`); any other call of the wrapper raises."""
+    args = cs.k4_small(np.random.default_rng(m), m, "cpu")
+    for mode, collect in (("SHW", "best"), ("HW", "all")):
+        want = jax_rows(args, mode, collect)
+        got = myers_perrow_plain(*args, mode=mode, collect=collect)
         assert got.keys() == want.keys()
         for k in want:
             assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
-    for mode, collect in (("XX", "best"), ("HW", "best"), ("NW", "best"),
-                          ("SHW", "all")):
+    got = myers_perrow(*args, mode="HW", collect="all")
+    assert np.array_equal(got["scores"].numpy(),
+                          np.asarray(jax_rows(args, "HW", "all")["scores"]))
+    got = myers_perrow(*args, mode="SHW", collect="call")
+    want = jax_calls(args)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == torch.int32
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    for mode, collect in (("XX", "call"), ("HW", "call"), ("NW", "best"),
+                          ("SHW", "best"), ("SHW", "all")):
         with pytest.raises(ValueError):
             myers_perrow(*args, mode=mode, collect=collect)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_perrow_call_equals_jax_argmin(seed):
+    """The plain SHW/call equals the JAX decomposer's choice (SHW rows on
+    the decomposer's layout, then np.argmin(dist / ms)) on windows with
+    exact quotient ties (10/170 = 5/85, 2/170 = 1/85, 0/170 = 0/85),
+    all-N windows and zero-length windows (`chip_smoke.k4_ties`): the
+    first query on a tie."""
+    args = cs.k4_ties(np.random.default_rng(seed), "cpu")
+    queries, windows, wlens = args
+    want = jax_calls(args)
+    got = myers_perrow_plain(*args, mode="SHW", collect="call")
+    for k in want:
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    rows = myers_perrow_plain(*args, mode="SHW", collect="best")
+    assert cs.exact_ties(rows["dist"].reshape(len(windows), -1),
+                         queries.ms) >= 8
+    q, d = want["q"], want["dist"]
+    assert (q[:4] == 0).all() and (d[:4] == 10).all()      # 10/170 = 5/85
+    assert (q[4:8] == 1).all() and (d[4:8] == 4).all()     # 4/85 < 10/170
+    allN = (wlens.numpy() == 0) | (windows.numpy() == 4).all(1)
+    assert allN.sum() == 4 and (q[allN] == 0).all() \
+        and (d[allN] == 170).all() and (want["end"][allN] == -1).all()
 
 
 def test_perrow_queries_rejects_bad_tables():
@@ -187,17 +250,47 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [1, 31, 32, 33, 64, 173, 256])
 def test_perrow_kernel_matches_plain_on_gpu(cuda, m):
-    args = cs.k4_small(np.random.default_rng(m), m, cuda)
+    """K4 equals its plain version on the card and on the CPU on phase
+    k4's small cases, and its plain version on the card where it stages
+    the columns in several tiles (`chip_smoke.k4_tiled`: many windows a
+    block, and at m > 224 256 queries whose tables leave little of the
+    block's shared memory)."""
+    rng = np.random.default_rng(m)
+    args = cs.k4_small(rng, m, cuda)
     cpu_args = cs.k4_to_cpu(args)
     for mode, collect in PERROW_CALLS:
+        want = myers_perrow_plain(*args, mode=mode, collect=collect)
+        cpu = myers_perrow(*cpu_args, mode=mode, collect=collect)
         before = myers_perrow.launches
         got = myers_perrow(*args, mode=mode, collect=collect)
         assert myers_perrow.launches == before + 1
-        want = myers_perrow_plain(*args, mode=mode, collect=collect)
-        cpu = myers_perrow(*cpu_args, mode=mode, collect=collect)
         for k in want:
             assert torch.equal(got[k], want[k]), (mode, collect, k)
             assert torch.equal(got[k].cpu(), cpu[k]), (mode, collect, k)
+    for args in cs.k4_tiled(rng, m, cuda):
+        for mode, collect in PERROW_CALLS:
+            want = myers_perrow_plain(*args, mode=mode, collect=collect)
+            got = myers_perrow(*args, mode=mode, collect=collect)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (mode, collect, k,
+                                                      args[1].shape)
+
+
+@pytest.mark.gpu
+def test_perrow_kernel_calls_ties_on_gpu(cuda):
+    """K4 on the tie set and at the decomposer's full-batch step (the 36
+    D6Z1 queries against 1,024 windows) equals the plain version, in
+    both calls."""
+    d6 = read_seqs(D6Z1)
+    dec = TDecomposer(d6, device=cuda)
+    rows = cs.k4_rows(np.random.default_rng(5), d6, 1024, dec.window, cuda)
+    for args in (cs.k4_ties(np.random.default_rng(0), cuda),
+                 (dec.queries, *rows)):
+        for mode, collect in PERROW_CALLS:
+            want = myers_perrow_plain(*args, mode=mode, collect=collect)
+            got = myers_perrow(*args, mode=mode, collect=collect)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (mode, k)
 
 
 @pytest.mark.gpu
