@@ -10,8 +10,9 @@ polish is the deterministic consensus polisher. The reference's hard-coded
 join of scaffolds 0+1 for cen6 (:84-87) is exposed as `join_scaffolds`.
 
 The port's counterpart of the JAX package's `mono/pipeline.py`: the same
-stages and files, on one device. Its device work is the decomposition
-(kernel K4 on the card, `mono/string_decomposer.py`); the assembly
+stages and files. Its device work is the decomposition (kernel K4 on
+the card, `mono/string_decomposer.py`; its CLI shards it over every local
+card when there are more than one); the assembly
 stages are host numpy, and the polish runs on the port's
 `stages/consensus.polish_consensus` (its native library).
 """
@@ -56,14 +57,17 @@ class MonoPipeline:
         if outdir:
             os.makedirs(outdir, exist_ok=True)
 
-    def decompose(self, monomers: Dict[str, str], reads) -> SDReport:
+    def decompose(self, monomers: Dict[str, str], reads,
+                  mesh=None) -> SDReport:
         """The in-repo monomer decomposer on this pipeline's device:
-        (r_id, seq) reads -> SDReport, the input of `run`."""
+        (r_id, seq) reads -> SDReport, the input of `run`. mesh: None,
+        "auto" or a `parallel/mesh.Mesh` over which the decomposer's steps
+        shard (`MonomerDecomposer`)."""
         from centroflye_tpu_torch.mono.string_decomposer import (
             decompose_to_monostrings)
         return decompose_to_monostrings(monomers, reads,
                                         max_gap=self.config.max_gap,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
 
     def run(self, sd_report: SDReport, reads: Dict[str, str],
             join_scaffolds: Optional[Sequence[int]] = None,
@@ -155,7 +159,9 @@ def main(argv=None):
     if args.sd_report:
         sd = SDReport.from_file(args.sd_report, args.monomers)
     else:
-        sd = pipe.decompose(read_seqs(args.monomers), reads.items())
+        # every local card when there are more than one (auto_mesh)
+        sd = pipe.decompose(read_seqs(args.monomers), reads.items(),
+                            mesh="auto")
     asm = pipe.run(sd, reads, join_scaffolds=args.join_scaffolds,
                    verbose=True)
     for i, s in enumerate(asm.scaffolds_nucl):

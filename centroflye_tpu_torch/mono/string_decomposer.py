@@ -1,5 +1,5 @@
 """Monomer decomposition of reads (the in-repo StringDecomposer), on one
-device.
+device or a mesh.
 
 The port of the JAX package's `mono/string_decomposer.py`. The reference
 depends on the external StringDecomposer to translate each centromeric
@@ -31,6 +31,12 @@ into one launch a step, enough rows to fill the card's SMs, where the
 JAX package's 32 reads ran many short launches. The steps of a batch are
 as many as its longest read has records.
 
+With a mesh (`parallel/mesh.Mesh` of more than one device), each step's
+active windows split over it (padded to a device multiple with empty
+windows): one K4 launch a shard, the 12-byte calls concatenated in window
+order (`parallel/mesh.make_perrow_myers_step`), so the records are the
+single-device ones.
+
 Output rows are (monomer_sym, r_st, r_en, reliability) per read, the
 information of the SD TSV, for SDReport.from_decomposition.
 """
@@ -45,7 +51,9 @@ import torch
 
 from centroflye_tpu_torch.io.encoding import PAD, encode, revcomp
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
-from centroflye_tpu_torch.ops.myers_cuda import myers_perrow, perrow_queries
+from centroflye_tpu_torch.ops.myers_cuda import PERROW_CALLS, perrow_queries
+from centroflye_tpu_torch.parallel.mesh import (
+    Mesh, make_perrow_myers_step, pad_rows, resolve_mesh)
 
 
 @dataclasses.dataclass
@@ -62,16 +70,22 @@ class MonomerDecomposerConfig:
 class MonomerDecomposer:
     def __init__(self, monomers: Dict[str, str],
                  config: MonomerDecomposerConfig | None = None,
-                 device="cuda", *, state: dict | None = None):
+                 device="cuda", *, state: dict | None = None, mesh=None):
         """device: where the alignment steps run; "cuda" raises without a
         card. state: {"peqs", "ms"} tensors from
         `convert.decomposer_state_from_numpy`, used in place of the
-        tables built from `monomers`."""
+        tables built from `monomers`. mesh: None, "auto" or a `Mesh` of
+        `device`'s type (`parallel/mesh.resolve_mesh`): the steps' windows
+        shard over it, and `device` becomes its first device."""
         self.config = config or MonomerDecomposerConfig()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MonomerDecomposer: CUDA is not available; "
                                "pass device='cpu' to run on the CPU")
+        self.mesh = resolve_mesh(mesh, self.device)
+        # without a mesh, the steps run as the one shard of `device`
+        self.shards = self.mesh or Mesh([self.device])
+        self.device = self.shards.first
         self.names = list(monomers.keys())
         self.n = len(self.names)
         seqs = list(monomers.values())
@@ -88,19 +102,28 @@ class MonomerDecomposer:
         # checked and laid out for the kernel once, not at every step
         self.queries = perrow_queries(state["peqs"], state["ms"],
                                       m=self.max_m, device=self.device)
+        self._steps = {
+            call: make_perrow_myers_step(
+                self.shards, self.queries.peqs, self.queries.ms,
+                m=self.max_m, mode=call[0], collect=call[1])
+            for call in PERROW_CALLS}
         self.window = self.max_m + self.config.slack
 
     def _device_batch(self, windows: np.ndarray, lens: np.ndarray,
                       mode: str, collect: str = "best"):
         """One lockstep call on the device: every query against each of
-        the R windows, rows r * Q + q (K4 on the card). -> its outputs as
-        numpy, and R, Q."""
-        out = myers_perrow(
-            self.queries, torch.from_numpy(windows).to(self.device),
-            torch.from_numpy(lens).to(self.device), mode=mode,
-            collect=collect)
-        return ({k: v.cpu().numpy() for k, v in out.items()},
-                windows.shape[0], 2 * self.n)
+        the R windows, rows r * Q + q (K4 on the card, one launch a
+        shard; the windows padded to a shard multiple with empty ones,
+        whose outputs are sliced away). -> its outputs as numpy, and R,
+        Q."""
+        R, Q = windows.shape[0], 2 * self.n
+        n_dev = self.shards.size
+        out = self._steps[mode, collect](
+            pad_rows(np.ascontiguousarray(windows), n_dev, PAD),
+            pad_rows(lens, n_dev, 0))
+        rows = {"scores": R * Q}
+        return ({k: v[:rows.get(k, R)].cpu().numpy()
+                 for k, v in out.items()}, R, Q)
 
     def _step(self, windows: np.ndarray, lens: np.ndarray):
         """One lockstep SHW step: windows (R, window) int8 -> each
@@ -218,11 +241,12 @@ class MonomerDecomposer:
 def decompose_to_monostrings(monomers: Dict[str, str],
                              reads: Iterable[Tuple[str, str]],
                              config: MonomerDecomposerConfig | None = None,
-                             max_gap: int = 100, device="cuda"):
-    """reads -> SDReport (monoreads) without the external tool."""
+                             max_gap: int = 100, device="cuda", mesh=None):
+    """reads -> SDReport (monoreads) without the external tool; mesh as
+    `MonomerDecomposer`'s."""
     from centroflye_tpu_torch.mono.sd_parser import SDReport
 
-    dec = MonomerDecomposer(monomers, config, device=device)
+    dec = MonomerDecomposer(monomers, config, device=device, mesh=mesh)
     records = dec.decompose(reads)
     return SDReport.from_decomposition(
         records, dec.names, max_gap=max_gap,

@@ -37,6 +37,8 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
     "cf_myers_perrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cf_myers_carry": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

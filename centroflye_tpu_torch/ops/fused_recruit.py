@@ -23,6 +23,7 @@ only kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,6 +32,7 @@ import torch
 from centroflye_tpu_torch.ops.myers import MASK
 from centroflye_tpu_torch.ops.myers_cuda import recruit_distances
 from centroflye_tpu_torch.ops.seed_filter import seed_hit_counts_bitmap
+from centroflye_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 
 def unpack_2bit_host(packed: np.ndarray) -> np.ndarray:
@@ -90,23 +92,80 @@ def make_fused_recruit(seed_bitmap: torch.Tensor,
                        peq_fwd: torch.Tensor, peq_rc: torch.Tensor,
                        *, m: int, seed_k: int, min_hits: int,
                        k_budget: int = 128, stride: int = 2,
-                       seed_bitmap_le: Optional[torch.Tensor] = None):
+                       seed_bitmap_le: Optional[torch.Tensor] = None,
+                       mesh=None):
     """Returns fused(packed, n_mask, lens) -> (df, dr, hits, n_pass) on the
     device of peq_fwd. seed_bitmap: the membership bitmap
     (ops/seed_filter.build_seed_bitmap) as an int64 tensor of 32-bit
     words; seed_bitmap_le, the same LE-keyed (build_seed_bitmap(le=True)),
     enables the packed filter path. Positions are sampled every `stride`.
     `min_hits` is in stride-1 units and scaled down here so the sampled
-    filter keeps the config's strictness."""
+    filter keeps the config's strictness.
+
+    mesh: a `parallel/mesh.Mesh` of more than one device shards the
+    batch's rows over it (rows must be a multiple of its size); without
+    one, the step is the one shard of peq_fwd's device. Each shard runs
+    the whole body, K1 included, on its device with its own copy of the
+    tables, and the bundle is shard-blocked [df|dr|hits|n_pass] a shard
+    on the mesh's first device, which `unbundle` re-orders as the JAX
+    package's engine does (n_pass: the largest shard's; the host
+    overflow rule then applies per shard)."""
     min_hits = max(1, min_hits // stride)
-    device = peq_fwd.device
-    kmask = (1 << (2 * seed_k)) - 1
     # the packed filter reads a k-mer from one u32 word pair (k <= 16) at
     # in-word offsets that tile the word evenly
     packed_path_ok = (seed_bitmap_le is not None and seed_k <= 16
                       and stride in (1, 2, 4))
+    body = functools.partial(
+        _fused_body, m=m, seed_k=seed_k, min_hits=min_hits,
+        k_budget=k_budget, stride=stride, packed_path_ok=packed_path_ok)
+    if mesh is None or mesh.size <= 1:
+        mesh = Mesh([peq_fwd.device])
+    n_dev = mesh.size
+    per_device = list(zip(*(
+        replicate(mesh, t) if t is not None else (None,) * n_dev
+        for t in (seed_bitmap, peq_fwd, peq_rc, seed_bitmap_le))))
 
-    def _packed_hits(W, Wn, lens, offsets):
+    def fused_raw(packed, n_mask, lens):
+        """Returns the bundle without waiting for it: the shards' blocks
+        [df, dr, hits, n_pass(1)] on the first device. packed (B, L/4)
+        uint8, n_mask (B, L/8) uint8 or None, and lens (B,) int32: numpy
+        arrays or tensors."""
+        arrays = [packed, lens] + ([n_mask] if n_mask is not None else [])
+        parts = [body(per_device[i], sh[0], sh[2] if len(sh) > 2 else None,
+                      sh[1]).to(mesh.first)
+                 for i, sh in enumerate(shard_batch(mesh, *arrays))]
+        return torch.cat(parts) if n_dev > 1 else parts[0]
+
+    def unbundle(out: np.ndarray, B: int):
+        """-> (df, dr, hits, n_pass); sharded, n_pass is the largest
+        shard's."""
+        blocks = out.reshape(n_dev, -1)
+        Bs = B // n_dev
+        return (blocks[:, :Bs].reshape(B), blocks[:, Bs:2 * Bs].reshape(B),
+                blocks[:, 2 * Bs:3 * Bs].reshape(B),
+                int(blocks[:, 3 * Bs].max()))
+
+    def fused_unbundled(packed, n_mask, lens):
+        out = fused_raw(packed, n_mask, lens).cpu().numpy()
+        return unbundle(out, lens.shape[0])
+
+    fused_unbundled.raw = fused_raw
+    fused_unbundled.unbundle = unbundle
+    fused_unbundled.min_hits = min_hits      # in sampled-position units
+    fused_unbundled.stride = stride
+    fused_unbundled.n_dev = n_dev
+    return fused_unbundled
+
+
+def _fused_body(tables, packed, n_mask, lens, *, m, seed_k, min_hits,
+                k_budget, stride, packed_path_ok):
+    """One device's fused step on its own tables (seed_bitmap, peq_fwd,
+    peq_rc, seed_bitmap_le) and rows -> the bundle [df, dr, hits,
+    n_pass]."""
+    seed_bitmap, peq_fwd, peq_rc, seed_bitmap_le = tables
+    kmask = (1 << (2 * seed_k)) - 1
+
+    def packed_hits(W, Wn, lens, offsets):
         """Hit counts over sampled in-word phases `offsets`: W/Wn are
         (R, nw) words of 16 bases each (base 16w+j at bits 2j); a window
         at in-word offset o spans W[w] and W[w+1]."""
@@ -125,7 +184,7 @@ def make_fused_recruit(seed_bitmap: torch.Tensor,
             hits += found.sum(dim=1, dtype=torch.int32)
         return hits
 
-    def _score_survivors(hits, lens, survivor_codes):
+    def score_survivors(hits, survivor_codes):
         """Compaction, scoring and scatter shared by both filter paths:
         survivor_codes(top) gives the (kb, L) int8 codes of rows `top`."""
         B = hits.shape[0]
@@ -143,46 +202,18 @@ def make_fused_recruit(seed_bitmap: torch.Tensor,
         n_pass = (~fail).sum(dtype=torch.int32).reshape(1)
         return torch.cat([df, dr, hits, n_pass])
 
-    def _fused_body_packed(packed, lens):
+    if n_mask is None and packed_path_ok:
         B, Lq = packed.shape
         if Lq % 4:
             raise ValueError(f"packed rows of {Lq} bytes: the segment "
                              f"length must be a multiple of 16")
         W = packed.view(torch.int32).to(torch.int64) & MASK
         Wn = torch.nn.functional.pad(W[:, 1:], (0, 1))  # next word, 0-padded
-        hits = _packed_hits(W, Wn, lens, range(0, 16, stride))
-        return _score_survivors(                      # unpack kb rows only
-            hits, lens, lambda top: _unpack_nomask(packed[top]))
-
-    def _fused_body(codes, lens):
-        hits = seed_hit_counts_bitmap(seed_bitmap, codes, lens, k=seed_k,
-                                      stride=stride)
-        return _score_survivors(hits, lens, lambda top: codes[top])
-
-    def fused_raw(packed, n_mask, lens):
-        """Returns the bundled device tensor [df(B), dr(B), hits(B),
-        n_pass(1)] without waiting for it. packed (B, L/4) uint8, n_mask
-        (B, L/8) uint8 or None, and lens (B,) int32: numpy arrays or
-        tensors."""
-        packed = torch.as_tensor(packed).to(device)
-        lens = torch.as_tensor(lens).to(device)
-        if n_mask is not None:
-            n_mask = torch.as_tensor(n_mask).to(device)
-            return _fused_body(_unpack_2bit(packed, n_mask), lens)
-        if packed_path_ok:
-            return _fused_body_packed(packed, lens)
-        return _fused_body(_unpack_nomask(packed), lens)
-
-    def unbundle(out: np.ndarray, B: int):
-        """-> (df, dr, hits, n_pass)."""
-        return out[:B], out[B:2 * B], out[2 * B:3 * B], int(out[3 * B])
-
-    def fused_unbundled(packed, n_mask, lens):
-        out = fused_raw(packed, n_mask, lens).cpu().numpy()
-        return unbundle(out, lens.shape[0])
-
-    fused_unbundled.raw = fused_raw
-    fused_unbundled.unbundle = unbundle
-    fused_unbundled.min_hits = min_hits      # in sampled-position units
-    fused_unbundled.stride = stride
-    return fused_unbundled
+        hits = packed_hits(W, Wn, lens, range(0, 16, stride))
+        return score_survivors(                       # unpack kb rows only
+            hits, lambda top: _unpack_nomask(packed[top]))
+    codes = (_unpack_nomask(packed) if n_mask is None
+             else _unpack_2bit(packed, n_mask))
+    hits = seed_hit_counts_bitmap(seed_bitmap, codes, lens, k=seed_k,
+                                  stride=stride)
+    return score_survivors(hits, lambda top: codes[top])

@@ -14,11 +14,14 @@ carry-lookahead over the word axis, log2(W) steps.
 Covered: modes HW (infix), SHW (prefix) and NW (global); one shared
 (5, W) query or per-row (B, 5, W) queries with per-row lengths `ms`;
 collect="best" (distance and end) or "all" (the score after each column).
+`myers_carry_plain` runs one chunk of columns from a carried DP state
+(`CarryState`), the sequence-parallel tier's step and the plain version
+of kernel K5.
 """
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +48,13 @@ def build_peq(query_codes: np.ndarray, m: int | None = None) -> np.ndarray:
         if 0 <= a < 4:
             peq[a, i // WORD] |= np.uint32(1) << np.uint32(i % WORD)
     return peq
+
+
+def int32_words(words: torch.Tensor) -> torch.Tensor:
+    """int64-held 32-bit words -> a contiguous int32 tensor with the same
+    bits (the kernels' word type)."""
+    return torch.where(words > 0x7FFFFFFF, words - (MASK + 1), words).to(
+        torch.int32).contiguous()
 
 
 def words_tensor(words: np.ndarray, device) -> torch.Tensor:
@@ -187,6 +197,85 @@ def myers_distance_batch(
         return {"dist": final.to(torch.int32),
                 "end": (lens - 1).to(torch.int32)}
     return {"dist": best.to(torch.int32), "end": end.to(torch.int32)}
+
+
+class CarryState(NamedTuple):
+    """The whole DP state of B rows between two text columns, what the
+    sequence-parallel tier hands from one device to the next: vp and vn,
+    (B, W) int32 tensors holding 32-bit words, and score (at the query's
+    last row), best, end (its first column, -1 for none) and final (the
+    score at the row's last column), each (B,) int32."""
+    vp: torch.Tensor
+    vn: torch.Tensor
+    score: torch.Tensor
+    best: torch.Tensor
+    end: torch.Tensor
+    final: torch.Tensor
+
+    def to(self, device) -> "CarryState":
+        return CarryState(*(t.to(device) for t in self))
+
+
+def carry_init(B: int, m: int, device) -> CarryState:
+    """The state before column 0: vp all ones, vn 0, score = best = final
+    = m, end = -1."""
+    W = n_words(m)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.int32, device=device)
+    return CarryState(full((B, W), -1), full((B, W), 0), full((B,), m),
+                      full((B,), m), full((B,), -1), full((B,), m))
+
+
+def myers_carry_plain(peq: torch.Tensor, text: torch.Tensor,
+                      lens: torch.Tensor, state: CarryState, c0: int, *,
+                      m: int, mode: Literal["HW", "SHW", "NW"] = "HW"
+                      ) -> CarryState:
+    """Plain version of K5 (`ops/myers_cuda.myers_carry`): the JAX
+    package's sequence-parallel chunk_scan
+    (`centroflye_tpu/parallel/seq_parallel.py:86-110`). Runs the global
+    columns [c0, c0 + C) of a (B, C) int8 `text` chunk from `state` and
+    returns the new state. A column j is active for a row while j < lens;
+    past it the state is frozen. peq: (5, W) int64 words; lens: (B,)
+    global lengths."""
+    B, C = text.shape
+    dev = text.device
+    peq = peq.to(device=dev, dtype=torch.int64)
+    vp = state.vp.to(dev).long() & MASK
+    vn = state.vn.to(dev).long() & MASK
+    score, best, end, final = (t.to(dev).long() for t in state[2:])
+    lens = lens.reshape(-1).to(device=dev, dtype=torch.int64)
+    idx = text.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < 4), idx, 4)   # N/PAD: zero row
+    hw_word, hb = (m - 1) // WORD, (m - 1) % WORD
+    global_mode = mode in ("SHW", "NW")
+    n_cols = min(C, max(0, int(lens.max()) - c0)) if B else 0
+    for jj in range(n_cols):
+        j = c0 + jj
+        active = j < lens
+        vp_new, vn_new, hp, hn = myers_column_update(
+            peq[idx[:, jj]], vp, vn, global_mode=global_mode)
+        inc = ((hp[:, hw_word] >> hb) & 1) - ((hn[:, hw_word] >> hb) & 1)
+        sel = active[:, None]
+        vp = torch.where(sel, vp_new, vp)
+        vn = torch.where(sel, vn_new, vn)
+        score = torch.where(active, score + inc, score)
+        improved = active & (score < best)
+        best = torch.where(improved, score, best)
+        end = torch.where(improved, j, end)
+        final = torch.where(active & (j == lens - 1), score, final)
+    return CarryState(int32_words(vp), int32_words(vn),
+                      *(t.to(torch.int32) for t in (score, best, end, final)))
+
+
+def carry_result(state: CarryState, lens: torch.Tensor, mode: str) -> dict:
+    """The finished state's {"dist", "end"}, as `myers_distance_batch`'s
+    collect="best": NW gives the final score at each row's last column."""
+    if mode == "NW":
+        return {"dist": state.final,
+                "end": (lens.reshape(-1).to(state.final.device) - 1).to(
+                    torch.int32)}
+    return {"dist": state.best, "end": state.end}
 
 
 def edit_distance_oracle(query: str, text: str, mode: str = "HW"):

@@ -7,6 +7,7 @@
 | `myers_hw_v3` | `csrc/myers_hw_2strand.cu` (one strand) | `myers_hw_pallas_v3` |
 | `myers_hw_v3_banded` | `csrc/myers_hw_banded.cu` | `myers_hw_pallas_v3_banded` |
 | `myers_perrow` (K4) | `csrc/myers_perrow.cu` | `ops/myers.py::myers_distance_batch` with per-row queries (a `jnp` scan, no Pallas kernel) |
+| `myers_carry` (K5) | `csrc/myers_carry.cu` | `parallel/seq_parallel.py`'s chunk_scan (a `jnp` scan, no Pallas kernel) |
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in its `launches` attribute. The two-strand and one-strand wrappers run
@@ -29,6 +30,11 @@ monomer against each read's window), in SHW mode choosing each window's
 call on the card (the query of least dist / m and its row's dist and
 end) or in HW mode collecting the score after every column. Its query
 set (`perrow_queries`) is checked and laid out once, not at every step.
+
+K5, `myers_carry`, runs one chunk of text columns for B rows from a
+carried DP state (`ops/myers.CarryState`) and returns the new state: the
+sequence-parallel tier's step (`parallel/seq_parallel.py`), in HW, SHW
+and NW modes.
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ from typing import NamedTuple
 import torch
 
 from centroflye_tpu_torch.ops._build import load_library
-from centroflye_tpu_torch.ops.myers import MASK, myers_distance_batch, n_words
+from centroflye_tpu_torch.ops.myers import (
+    CarryState, int32_words, myers_carry_plain, myers_distance_batch,
+    n_words)
 
 MAX_WORDS = 4 * 32      # m <= 4096
 GROUPS = (8, 32)        # lanes per (row, strand) of myers_hw_2strand.cu
@@ -236,12 +244,6 @@ def myers_hw_2strand_plain(peq_f, peq_r, text_t, lens, *, m: int):
             "dist_r": out_r["dist"], "end_r": out_r["end"]}
 
 
-def _words_as_int32(peq: torch.Tensor) -> torch.Tensor:
-    """int64-held 32-bit words -> int32 tensor with the same bits."""
-    return torch.where(peq > 0x7FFFFFFF, peq - (MASK + 1), peq).to(
-        torch.int32).contiguous()
-
-
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, text_t on {device}")
@@ -271,7 +273,7 @@ def _check_launch(peqs: dict, text_t, lens, m: int):
     _check("lens", lens, torch.int32, tuple(lens.shape), dev)
     if lens.numel() != B or lens.dim() not in (1, 2):
         raise ValueError(f"lens shape {tuple(lens.shape)} for B={B}")
-    return W, L, B, [_words_as_int32(p) for p in peqs.values()]
+    return W, L, B, [int32_words(p) for p in peqs.values()]
 
 
 def _raise_on(rc: int, name: str):
@@ -475,7 +477,7 @@ def perrow_queries(peqs, ms, *, m: int, device) -> PerrowQueries:
         raise ValueError(f"ms must lie in [1, {m}]")
     peqs = peqs.to(device).contiguous()
     return PerrowQueries(
-        peqs, _words_as_int32(peqs) if device.type == "cuda" else None,
+        peqs, int32_words(peqs) if device.type == "cuda" else None,
         ms_host.to(device=device, dtype=torch.int32).contiguous(), m)
 
 
@@ -565,3 +567,58 @@ def myers_perrow(queries: PerrowQueries, windows, wlens, *, mode="SHW",
 
 
 myers_perrow.launches = 0
+
+
+CARRY_MODES = {"HW": 0, "SHW": 1, "NW": 1}    # 1: a 1 shifted into hp
+
+
+def myers_carry(peq, text, lens, state: CarryState, c0: int, *, m: int,
+                mode="HW") -> CarryState:
+    """K5: the global columns [c0, c0 + C) of a (B, C) int8 `text` chunk
+    (rows may be strided, columns contiguous) from `state`, on text's
+    device -> the new state (fresh tensors). peq: (5, W) int64 words;
+    lens: (B,) int32 global lengths; state on the same device. A column
+    at or past a row's length leaves its state as it is. For CPU tensors
+    it runs `ops/myers.myers_carry_plain`; on a CUDA tensor it launches
+    K5 and synchronises nothing."""
+    if mode not in CARRY_MODES:
+        raise ValueError(f"mode={mode!r}: one of {tuple(CARRY_MODES)}")
+    dev = text.device
+    if dev.type == "cpu":
+        return myers_carry_plain(peq, text, lens, state, c0, m=m, mode=mode)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    W = n_words(m)
+    if m < 1 or W > MAX_WORDS:
+        raise ValueError(f"m={m}: K5 takes 1 <= m <= {32 * MAX_WORDS}")
+    if text.dim() != 2 or text.dtype != torch.int8 or text.stride(1) != 1:
+        raise ValueError(f"text must be (B, C) int8 with contiguous "
+                         f"columns, got {text.dtype} {tuple(text.shape)} "
+                         f"strides {text.stride()}")
+    if c0 < 0:
+        raise ValueError(f"c0={c0} < 0")
+    B, C = text.shape
+    _check("peq", peq, torch.int64, (5, W), dev)
+    _check("lens", lens, torch.int32, (B,), dev)
+    for name in ("vp", "vn"):
+        _check(name, getattr(state, name), torch.int32, (B, W), dev)
+    sc_in = torch.stack(list(state[2:]))
+    _check("score, best, end, final", sc_in, torch.int32, (4, B), dev)
+    vp = torch.empty((B, W), dtype=torch.int32, device=dev)
+    vn = torch.empty_like(vp)
+    sc = torch.empty((4, B), dtype=torch.int32, device=dev)
+    pq = int32_words(peq)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cf_myers_carry(
+            pq.data_ptr(), text.data_ptr(), lens.data_ptr(),
+            state.vp.data_ptr(), state.vn.data_ptr(), sc_in.data_ptr(),
+            vp.data_ptr(), vn.data_ptr(), sc.data_ptr(), m, W, C, B,
+            max(text.stride(0), C), c0, CARRY_MODES[mode], stream)
+    _raise_on(rc, "cf_myers_carry")
+    myers_carry.launches += 1
+    return CarryState(vp, vn, sc[0], sc[1], sc[2], sc[3])
+
+
+myers_carry.launches = 0

@@ -20,7 +20,11 @@ and skip-if-exists resume:
 
 Stages 1, 3, 4 and 5 run their device work on the pipeline's device
 (CUDA unless the caller asks for the CPU); stages 2 and 6 are host
-numpy and the port's native library. Stages 2-4 are also module
+numpy and the port's native library. With a mesh (every local card when
+there are more than one, or the `mesh` given), stages 1 and 3 shard
+over it, as in the JAX package; their artifacts are the single-device
+ones. `distributed=True` in a multi-process run shards stage 1's reads
+over the processes, and process 0 runs the later stages. Stages 2-4 are also module
 functions (`run_decomposition`, `run_unique_kmers`, `run_placement`,
 `run_placement_validation`) with explicit configs, which the methods
 call; each logs its phase seconds and counts in the `extra` of its log
@@ -47,6 +51,9 @@ from centroflye_tpu_torch.config import (CentroFlyeConfig,
 from centroflye_tpu_torch.io.encoding import kmer_strings, string_to_kmer_code
 from centroflye_tpu_torch.io.fasta import (atomic_write, iter_seqs, read_seq,
                                            write_seqs)
+from centroflye_tpu_torch.parallel.distributed import is_coordinator
+from centroflye_tpu_torch.parallel.mesh import (auto_mesh, make_mesh,
+                                                resolve_mesh)
 from centroflye_tpu_torch.stages.cloud_contig import (CloudContig,
                                                       map_reads_fast)
 from centroflye_tpu_torch.stages.distance_graph import (DistanceEdges,
@@ -73,23 +80,34 @@ logger = logging.getLogger("centroflye_tpu_torch")
 
 class CenXPipeline:
     def __init__(self, unit: str, config: CentroFlyeConfig, outdir: str,
-                 ncrf_report: Optional[str] = None, device="cuda"):
+                 ncrf_report: Optional[str] = None, device="cuda",
+                 mesh="auto", distributed: bool = False):
         """ncrf_report: optional pinned NCRF report file — when given, the
         decomposition stage parses it (stages/ncrf_compat) instead of
         running the in-repo decomposer (bit-for-bit parity configs).
         device: where the device stages run; "cuda" raises without a
-        card. The port runs on one device: it has no mesh or distributed
-        mode. A setting the port does not run (`unrun_settings`) raises
-        unless it is at its default."""
-        unrun = unrun_settings(config)
-        if unrun:
-            raise ValueError(f"CenXPipeline: the port does not run "
-                             f"{', '.join(unrun)}; leave them at their "
-                             f"defaults")
+        card. mesh: "auto" shards stages 1 and 3 over the first
+        `config.parallel.n_devices` local cards (0: all) on axis
+        `config.parallel.data_axis` when there are more than one, and
+        over none on the CPU; None forces one device; a
+        `parallel/mesh.Mesh` of `device`'s type pins the devices. A mesh
+        of one device is none. distributed: in a multi-process run
+        (`parallel/distributed.init_distributed`), stage 1 shards the
+        read stream over the processes with a merge on process 0, and the
+        later stages run there (run() returns "" elsewhere).
+        `config.threads`, `config.mono` and `config.polisher.error_mode`
+        are not read on the cenX path, as in the JAX package."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CenXPipeline: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = None
+            if self.device.type == "cuda" and auto_mesh() is not None:
+                mesh = make_mesh(config.parallel.n_devices,
+                                 axis=config.parallel.data_axis)
+        self.mesh = resolve_mesh(mesh, self.device)
+        self.distributed = distributed
         self.unit = unit
         self.config = config
         self.outdir = outdir
@@ -111,7 +129,8 @@ class CenXPipeline:
                 self._write_unit(), reads_fn, out_fn,
                 threshold=self.config.recruitment.threshold,
                 batch_size=self.config.recruitment.batch_size,
-                device=self.device)
+                device=self.device, mesh=self.mesh,
+                distributed=self.distributed)
         return out_fn
 
     def _write_unit(self) -> str:
@@ -131,7 +150,8 @@ class CenXPipeline:
         """Stages 3a+3b: rare k-mers then distance-graph unique k-mers."""
         return run_unique_kmers(dec, self.config.kmer_recruitment,
                                 self.config.coverage, self.outdir,
-                                self.device, metrics=self.metrics).codes
+                                self.device, metrics=self.metrics,
+                                mesh=self.mesh).codes
 
     def run_placement(self, dec: Decomposition, uniq_codes: np.ndarray):
         """Stage 4: greedy read placement. Returns (placements, clouds)."""
@@ -196,8 +216,12 @@ class CenXPipeline:
 
     # ----------------------------------------------------------------- #
     def run(self, reads_fn: str) -> str:
-        """Full chain; returns the final assembly sequence."""
+        """Full chain; returns the final assembly sequence (on process 0
+        of a distributed run; "" on the others, which take part in stage
+        1 only)."""
         centromeric_fn = self.run_recruitment(reads_fn)
+        if self.distributed and not is_coordinator():
+            return ""
         dec = self.run_decomposition(centromeric_fn)
         uniq = self.run_unique_kmers(dec)
         placements, clouds = self.run_placement(dec, uniq)
@@ -216,19 +240,6 @@ class CenXPipeline:
         self.run_unit_consensus(dec)
         assembly = self.run_polisher(dec, placements_p)
         return self.run_tandem_polish(dec, placements_p, assembly)
-
-
-def unrun_settings(config: CentroFlyeConfig):
-    """The names of `config`'s settings off their defaults that the
-    port's pipeline would not read: `mono` (cen6), `parallel`
-    (multi-device), `threads` and `polisher.error_mode`. They stay in the
-    config for the JSON round trip with the JAX package's."""
-    default = CentroFlyeConfig()
-    names = [n for n in ("threads", "mono", "parallel")
-             if getattr(config, n) != getattr(default, n)]
-    if config.polisher.error_mode != default.polisher.error_mode:
-        names.append("polisher.error_mode")
-    return names
 
 
 def run_decomposition(unit: str, centromeric_fn: str,
@@ -281,10 +292,10 @@ class UniqueKmers:
 
 def run_unique_kmers(dec: Decomposition, config: KmerRecruitmentConfig,
                      coverage: int, outdir: str, device="cuda", *,
-                     metrics: Optional[MetricsRegistry] = None
-                     ) -> UniqueKmers:
+                     metrics: Optional[MetricsRegistry] = None,
+                     mesh=None) -> UniqueKmers:
     """Stages 3a+3b: rare k-mers then distance-graph unique k-mers, on
-    `device`. Writes the two artifacts under
+    `device`, or sharded over `mesh` (a `parallel/mesh.Mesh`). Writes the two artifacts under
     `outdir/recruited_unique_kmers/` as the JAX pipeline does and returns
     the result (`.codes` is what the JAX pipeline returns); an existing
     k-mer artifact is read back instead (resume). The computation is
@@ -303,7 +314,8 @@ def run_unique_kmers(dec: Decomposition, config: KmerRecruitmentConfig,
     seqs = [rec.seq for rec in records.values()]
     with (metrics or MetricsRegistry()).stage("unique_kmers", "kmers") as m:
         t0 = time.perf_counter()
-        rare = get_rare_kmers(seqs, config, coverage, device=device)
+        rare = get_rare_kmers(seqs, config, coverage, device=device,
+                              mesh=mesh)
         t1 = time.perf_counter()
         clouds = build_read_clouds(records, rare, config.k)
         _, tensor, n_units, _ = pad_clouds(clouds, sorted(records))
@@ -315,7 +327,7 @@ def run_unique_kmers(dec: Decomposition, config: KmerRecruitmentConfig,
         # overflowing them
         surv = float(config.kmer_survival_rate)
         uniq_codes, edges = recruit_unique_kmers(
-            tensor, n_units, rare, config, device=device,
+            tensor, n_units, rare, config, device=device, mesh=mesh,
             dedup_hint=max(1, int(int(coverage) / 2 * surv * surv)))
         t3 = time.perf_counter()
         m.items = len(uniq_codes)

@@ -1,5 +1,5 @@
 """Distance-graph recruitment of unique k-mers (the reference's 9h stage),
-the JAX package's `stages/distance_graph.py` in PyTorch, single device.
+the JAX package's `stages/distance_graph.py` in PyTorch.
 
 Reference behavior (distance_based_kmer_recruitment.py:85-149): for every
 unit-distance d in [min_d, max_d] and every read, count ordered co-occurrences
@@ -30,6 +30,13 @@ tables and merge them in a binary forest, splitting the strip in half if
 its distinct keys overflow `max_capacity`. Groups (i, j) never straddle a
 strip, so `recruit_unique_kmers` filters each strip on the device and only
 the surviving edges reach the host.
+
+With a mesh (`parallel/mesh.Mesh` of more than one device) every strip is
+planned on the host (no device grid, as in the JAX package), the flat
+cloud array and each segment's sub-bucket list sit on every shard's
+device, and each chunk's pair range splits by shard
+(`parallel/mesh.make_pair_bucket_step`); the shards' tables fold on the
+mesh's first device, so the edges are the single-device ones.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ from centroflye_tpu_torch.config import KmerRecruitmentConfig
 from centroflye_tpu_torch.ops.kmers import (
     KEY_SENTINEL, count_unique, merge_count_tables, split_keys,
 )
+from centroflye_tpu_torch.parallel.mesh import (
+    Mesh, make_pair_bucket_step, replicate)
 
 logger = logging.getLogger("centroflye_tpu_torch")
 _FAR = 1 << 62        # beyond every position and every cumulative count
@@ -401,6 +410,7 @@ def _strip_sweep(
     adaptive: bool = True,
     yield_raw: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Yield one sorted (i, j, d) -> count device table per i-range strip,
     strips in ascending i order (so concatenating valid prefixes yields
@@ -452,11 +462,17 @@ def _strip_sweep(
     strip_w = max(1, -(-(max_idx + 1) // n_strips))
     n_strips = max(1, -(-(max_idx + 1) // strip_w))
 
+    # without a mesh, the sweep runs as the one shard of `device`
+    if mesh is None or mesh.size <= 1:
+        mesh = Mesh([device])
+    n_dev, device = mesh.size, mesh.first
     if entry_chunk is None:
         entry_chunk = max(1, min(element_budget, capacity))
+    # chunks split evenly over the shards
+    entry_chunk = -(-entry_chunk // n_dev) * n_dev
     # tail chunks use a 16x smaller shape: per-strip remainders would
     # otherwise pad up to a full chunk each
-    tail_chunk = max(1, entry_chunk // 16)
+    tail_chunk = -(-max(n_dev, entry_chunk // 16) // n_dev) * n_dev
 
     Kp = max(K, 1)
     flat_host = np.ascontiguousarray(
@@ -465,8 +481,7 @@ def _strip_sweep(
         flat_host = np.full(1, -1, np.int32)
     if int(np.int64(R) * T * Kp) >= 1 << 31:
         raise ValueError("flat cloud tensor exceeds int32 addressing")
-    flat_dev = torch.from_numpy(flat_host).to(device)
-
+    flat_dev = replicate(mesh, flat_host)       # a copy a distinct device
     # per-cloud sizes, masked to live unit instances
     sizes = (clouds_tensor >= 0).sum(axis=2).astype(np.int64)  # (R, T)
     live = np.arange(T, dtype=np.int64)[None, :] < \
@@ -513,6 +528,7 @@ def _strip_sweep(
     dedup_obs = [None]
     dedup_samples: List[float] = []
     sweep_grid = [None]  # once-per-sweep device sizes plane + vd counts
+    steps = {}                  # (chunk, capacity) -> the sharded step
 
     def run_chunk(bufs, c0, total, chunk):
         """One pair-range chunk -> (table, cap). The chunk table covers
@@ -521,8 +537,10 @@ def _strip_sweep(
         nonlocal capacity
         cap = min(_next_pow2(chunk), capacity)
         while True:
-            ukeys, cnt, n = _pairs_from_buckets(
-                flat_dev, *bufs, c0, total, chunk=chunk, capacity=cap)
+            if (chunk, cap) not in steps:
+                steps[chunk, cap] = make_pair_bucket_step(
+                    mesh, chunk=chunk, capacity=cap)
+            ukeys, cnt, n = steps[chunk, cap](flat_dev, *bufs, c0, total)
             if cap >= chunk or strip_no_ovf[0] or int(n) <= cap:
                 return (ukeys, cnt), cap
             cap *= 2
@@ -563,11 +581,12 @@ def _strip_sweep(
             continue
         strip_no_ovf[0] = total_strip <= capacity
         # device-grid path: the bucket grid and sub-bucket expansion are
-        # derived ON DEVICE from the (R, T) strip segments; a strip past
+        # derived ON DEVICE from the (R, T) strip segments; a mesh (whose
+        # step takes the sub-bucket list on every device), a strip past
         # int32 pair indexing, or clouds of 2^16 k-mers or more (the
-        # packed plane's 16-bit fields), are planned on the host
-        devgrid = (total_strip < (1 << 31) and total_subs < (1 << 31)
-                   and Kp < (1 << 16))
+        # packed plane's 16-bit fields) are planned on the host
+        devgrid = (n_dev == 1 and total_strip < (1 << 31)
+                   and total_subs < (1 << 31) and Kp < (1 << 16))
         nb_buckets = sum(R * max(0, T - d) for d in range(
             config.min_distance, d_hi + 1))
         n_subs_log = total_subs
@@ -655,7 +674,7 @@ def _strip_sweep(
                 packed_dev = torch.from_numpy(packed.ravel()).to(device)
                 plan_s += time.perf_counter() - t0
                 yield _prep_strip_device(
-                    flat_dev, packed_dev, sizes_flat_dev, nnz, nb,
+                    flat_dev[0], packed_dev, sizes_flat_dev, nnz, nb,
                     total_subs, total_strip, min_d=config.min_distance,
                     d_hi=d_hi, T=T, Kp=Kp,
                     NZCAP=_next_pow2(max(nnz, 1)),
@@ -683,8 +702,7 @@ def _strip_sweep(
                     a[:E] = v
                     arrs.append(a)
                 plan_s += time.perf_counter() - t0
-                yield tuple(torch.from_numpy(a).to(device)
-                            for a in arrs), total_seg
+                yield tuple(replicate(mesh, a) for a in arrs), total_seg
 
         # RAW fast path: a strip that fits one chunk skips the count
         # table, merge forest and overflow machinery entirely — the
@@ -693,7 +711,7 @@ def _strip_sweep(
             for bufs, total_seg in iter_segments():
                 size = min(max(tail_chunk, _next_pow2(total_seg)),
                            entry_chunk)
-                keys = _sorted_pairs(flat_dev, *bufs, total_seg,
+                keys = _sorted_pairs(flat_dev[0], *bufs, total_seg,
                                      chunk=size)
             logger.info(
                 "distance strip [%d, %d): %d pairs / %d buckets "
@@ -714,9 +732,10 @@ def _strip_sweep(
                     else:
                         # pow2-stair tail: ONE chunk rounded up to the
                         # next power of two (floored at tail_chunk) — at
-                        # most 2x masked slack, bounded shape variety
-                        size = min(max(tail_chunk, _next_pow2(rem)),
-                                   entry_chunk)
+                        # most 2x masked slack, bounded shape variety —
+                        # and to a multiple of the shards
+                        size = min(-(-max(tail_chunk, _next_pow2(rem))
+                                     // n_dev) * n_dev, entry_chunk)
                     t, cap = run_chunk(bufs, pos, total_seg, size)
                     insert(t, cap)
                     pos += size
@@ -824,6 +843,7 @@ def build_distance_table(
     element_budget: int = 64 << 20,
     strip_capacity: int = 1 << 26,
     device="cuda",
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Full (i, j, d) -> count table over all reads and distances,
     MATERIALIZED to host numpy (use recruit_unique_kmers for the
@@ -839,7 +859,7 @@ def build_distance_table(
     for keys, cnt, _n, _cap in _strip_sweep(
             clouds_tensor, n_units, config, capacity=capacity,
             entry_chunk=entry_chunk, element_budget=element_budget,
-            strip_capacity=strip_capacity, device=device):
+            strip_capacity=strip_capacity, device=device, mesh=mesh):
         n = int((keys != KEY_SENTINEL).sum())
         if n:
             hi, lo = split_keys(keys[:n])
@@ -922,6 +942,7 @@ def recruit_unique_kmers(
     max_capacity: int = 1 << 27,
     return_edges: bool = True,
     device="cuda",
+    mesh=None,
 ) -> Tuple[np.ndarray, DistanceEdges]:
     """End-to-end: strip-swept distance table -> per-strip ON-DEVICE
     filter -> unique k-mer codes (sorted uint64) + surviving edges.
@@ -951,7 +972,8 @@ def recruit_unique_kmers(
         _, edges2 = recruit_unique_kmers(
             clouds_tensor, n_units, rare_codes, base, capacity=capacity,
             entry_chunk=entry_chunk, dedup_hint=dedup_hint,
-            max_capacity=max_capacity, return_edges=True, device=device)
+            max_capacity=max_capacity, return_edges=True, device=device,
+            mesh=mesh)
         n_rare = max(len(rare_codes), 1)
         for c in range(config.min_coverage, 1, -1):
             kept = edges2.freq >= c
@@ -986,6 +1008,8 @@ def recruit_unique_kmers(
             freq=edges2.freq[kept], unique_kmer_indices=uidx,
             min_coverage_used=c)
         return np.sort(rare_codes[uidx]), edges
+    if mesh is not None and mesh.size > 1:
+        device = mesh.first
     num, den, exact = _rel_fraction(config.rel_threshold)
     n_seen = max(len(rare_codes), 1)
     # the last slot takes the writes that the JAX package drops
@@ -995,7 +1019,8 @@ def recruit_unique_kmers(
     for keys, cnt, n, _cap in _strip_sweep(
             clouds_tensor, n_units, config, capacity=capacity,
             entry_chunk=entry_chunk, dedup_hint=dedup_hint,
-            max_capacity=max_capacity, yield_raw=True, device=device):
+            max_capacity=max_capacity, yield_raw=True, device=device,
+            mesh=mesh):
         if n == 0:
             continue
         if cnt is None:

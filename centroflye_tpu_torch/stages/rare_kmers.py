@@ -195,6 +195,7 @@ def read_kmer_table(
     capacity: int | None = None,
     min_occurrences: int = 0,
     device="cuda",
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(codes uint64, n_reads, n_multi) over all sequences: for each distinct
     k-mer, the number of sequences containing it and the number containing it
@@ -210,12 +211,26 @@ def read_kmer_table(
     artifact. Dropped k-mers are exactly those with total occurrences <
     min_occurrences — callers must only use the output where that set is
     irrelevant (the rare band's floor guarantees it when min_occurrences
-    <= ceil(bottom * coverage * survival))."""
+    <= ceil(bottom * coverage * survival)).
+
+    mesh: a `parallel/mesh.Mesh` of more than one device shards each
+    batch's rows over it (rows padded to a device multiple) and folds the
+    shards' tables in shard order (`make_stats_count_step`), on its
+    first device; as in the JAX package that path runs no occurrence
+    prefilter, and its result is the single-device one."""
     if not len(seqs):
         return (np.empty(0, np.uint64), np.empty(0, np.int64),
                 np.empty(0, np.int64))
     forest = MergeForest(sum(max(0, len(s) - k + 1) for s in seqs),
                          capacity)
+    n_dev = 1
+    if mesh is not None and mesh.size > 1:
+        from centroflye_tpu_torch.parallel.mesh import (
+            make_stats_count_step, pad_rows)
+        n_dev = mesh.size
+        device = mesh.first
+        batch_rows = -(-batch_rows // n_dev) * n_dev
+        steps: Dict[int, object] = {}
 
     def upload(codes, lens):
         return (torch.from_numpy(codes).to(device),
@@ -225,7 +240,7 @@ def read_kmer_table(
     # corpus, on the device
     t_start = time.perf_counter()
     occ_table = None
-    if min_occurrences > 1:
+    if min_occurrences > 1 and n_dev == 1:
         occ_table = torch.zeros(1 << _HASH_BITS, dtype=torch.int32,
                                 device=device)
         for _ids, codes, lens in _iter_batches(seqs, batch_rows, 256):
@@ -235,6 +250,16 @@ def read_kmer_table(
 
     for ids, codes, lens in _iter_batches(seqs, batch_rows, 256):
         win_b = int(np.maximum(lens.astype(np.int64) - k + 1, 0).sum())
+        if n_dev > 1:
+            shards = (pad_rows(codes, n_dev, 4), pad_rows(lens, n_dev, 0),
+                      pad_rows(ids[:, None], n_dev, 0))
+
+            def count(cap, shards=shards):
+                if cap not in steps:
+                    steps[cap] = make_stats_count_step(mesh, k, cap)
+                return steps[cap](*shards)
+            forest.count(count, win_b)
+            continue
         codes_d, lens_d = upload(codes, lens)
         if occ_table is not None:
             keys, n_keep = _occ_mask(occ_table, codes_d, lens_d,
@@ -277,6 +302,7 @@ def get_rare_kmers(
     *,
     batch_rows: int = 64,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Sorted uint64 codes of rare k-mers (reference
     distance_based_kmer_recruitment.py:66-82 semantics, including the float
@@ -291,7 +317,7 @@ def get_rare_kmers(
     min_occ = int(np.ceil(left))
     codes, n_reads, n_multi = read_kmer_table(
         seqs, config.k, batch_rows=batch_rows, min_occurrences=min_occ,
-        device=device)
+        device=device, mesh=mesh)
     survive = n_multi <= config.max_nonuniq
     rare = survive & (n_reads >= left) & (n_reads <= right)
     return codes[rare]

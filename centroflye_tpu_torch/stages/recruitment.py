@@ -17,6 +17,21 @@ segments. Segments from many reads pack into dense (B, SEG) batches.
    and scores the survivors with the two-strand Myers kernel;
 3. the exact tier, `distances()`, scores candidate overflow and rows with
    in-range N bases (and every row with the prefilter off).
+
+With a mesh (`parallel/mesh.Mesh` of more than one device), the fused
+step's rows shard over it, and reads of at least
+`config.seq_parallel_min_len` take the sequence-parallel tier instead:
+the whole read's DP columns split over the mesh (parallel/seq_parallel,
+kernel K5), no segments, and no host prescan. The whole-read HW minimum
+equals the overlapped-segment minimum, so with the prefilter off the
+distances are the single-device ones. With it on, a long read that the
+prescan would resolve as (m, m) on one device gets its exact distance
+here instead, as in the JAX package. The recruited sets then agree
+wherever the prescan drops only reads outside the threshold, as the
+prefiltered set equal to the exact tier's shows.
+`recruit_file(..., distributed=True)` shards the read stream over the
+processes of a gloo group (parallel/distributed) and merges their
+partial files on process 0.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from centroflye_tpu_torch.config import RecruitmentConfig
 from centroflye_tpu_torch.io.encoding import PAD, decode, encode, revcomp
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import recruit_distances
+from centroflye_tpu_torch.parallel.mesh import resolve_mesh
 
 
 @dataclasses.dataclass
@@ -56,14 +72,23 @@ class RecruitmentEngine:
 
     def __init__(self, unit: str, config: RecruitmentConfig | None = None,
                  seg_len: int = 32768, device="cuda", *,
-                 state: dict | None = None):
+                 state: dict | None = None, mesh="auto"):
         """device: where the tables live and the device tiers run.
         state: tables from `convert.recruitment_state_from_numpy`, used in
-        place of the tables built from `unit` (see `from_state`)."""
+        place of the tables built from `unit` (see `from_state`).
+        mesh: "auto" shards over every local card when there are more
+        than one (`parallel/mesh.auto_mesh`; on a CPU device, none); None
+        runs on `device` alone; a `Mesh` pins the devices, its type
+        `device`'s. A mesh of one device is none. The exact tier runs on
+        the mesh's first device."""
         self.config = config or RecruitmentConfig()
         self.unit = unit
         self.m = len(unit)
         self.device = torch.device(device)
+        self.mesh = resolve_mesh(mesh, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.first
+        n_dev = self.mesh.size if self.mesh is not None else 1
         if state is None:
             state = self._build_state(unit, self.config, self.device)
         self.peq_fwd = state["peq_fwd"].to(self.device)
@@ -71,7 +96,11 @@ class RecruitmentEngine:
         self.threshold = self.config.threshold
         self.overlap = self.m + self.threshold - 1
         self.seg_len = max(seg_len, self.overlap + self.m)
-        self.batch = self.config.batch_size
+        # fused batches shard row-wise over the mesh: keep rows divisible
+        self.batch = -(-self.config.batch_size // n_dev) * n_dev
+        # the sequence-parallel long-read tier, active only with a mesh
+        self.seqpar_min = (self.config.seq_parallel_min_len
+                           if self.mesh is not None else 0)
         # in-flight fused-bundle queue depth
         self.queue_depth = 2
         if self.config.prefilter:
@@ -86,12 +115,12 @@ class RecruitmentEngine:
                 np.uint32)                  # for the host prescan
             # candidate (device) batch: small, since the host prescan
             # drops most rows before upload
-            self.cand_batch = min(self.batch, 256)
+            self.cand_batch = min(self.batch, -(-256 // n_dev) * n_dev)
             self._fused = make_fused_recruit(
                 self._seed_bitmap, self.peq_fwd, self.peq_rc,
                 m=self.m, seed_k=self.config.seed_k,
                 min_hits=self.config.min_seed_hits, k_budget=self.k_budget,
-                seed_bitmap_le=self._bitmap_le)
+                seed_bitmap_le=self._bitmap_le, mesh=self.mesh)
 
     @staticmethod
     def _build_state(unit: str, config: RecruitmentConfig, device) -> dict:
@@ -313,6 +342,32 @@ class RecruitmentEngine:
         # resolves; past the bound, force-flush every tier
         LAG_LIMIT = max(32768, 16 * B)
 
+        # the sequence-parallel tier: whole reads, a batch of LB, scored
+        # with their DP columns split over the mesh (exact: the whole-read
+        # HW minimum equals the overlapped-segment minimum)
+        long_batch: List[Tuple[int, np.ndarray]] = []
+        LB = 8
+
+        def flush_seqpar():
+            nonlocal long_batch
+            if not long_batch:
+                return
+            from centroflye_tpu_torch.parallel.seq_parallel import (
+                myers_distance_seqparallel)
+            Lmax = max(len(c) for _, c in long_batch)
+            Lb = -(-Lmax // SEG) * SEG      # columns bucketed to seg_len
+            text = np.full((len(long_batch), Lb), PAD, np.int8)
+            lens_l = np.zeros((len(long_batch),), np.int32)
+            for i, (_, c) in enumerate(long_batch):
+                text[i, :len(c)] = c
+                lens_l[i] = len(c)
+            out_f, out_r = (myers_distance_seqparallel(
+                peq, text, lens_l, m=self.m, mesh=self.mesh,
+                axis=self.mesh.axis) for peq in (self.peq_fwd, self.peq_rc))
+            for i, (ridx, _) in enumerate(long_batch):
+                resolve(ridx, int(out_f["dist"][i]), int(out_r["dist"][i]))
+            long_batch = []
+
         def force_drain():
             if prefilter:
                 flush_prescan()
@@ -322,6 +377,7 @@ class RecruitmentEngine:
             flush_myers()
             while inflight:
                 drain_one()
+            flush_seqpar()
 
         read_idx = 0
         for r_id, seq in reads:
@@ -330,6 +386,15 @@ class RecruitmentEngine:
                 yield from emit_ready()
             codes = seq if isinstance(seq, np.ndarray) else encode(seq)
             n_len = len(codes)
+            if self.seqpar_min and n_len >= self.seqpar_min:
+                pending[read_idx] = [r_id, 1, self.m, self.m]
+                order.append(read_idx)
+                long_batch.append((read_idx, np.asarray(codes, np.int8)))
+                if len(long_batch) >= LB:
+                    flush_seqpar()
+                    yield from emit_ready()
+                read_idx += 1
+                continue
             starts = segment_starts(n_len, SEG, self.overlap)
             pending[read_idx] = [r_id, len(starts), self.m, self.m]
             order.append(read_idx)
@@ -348,6 +413,7 @@ class RecruitmentEngine:
                     enqueue_myers(codes[st:st + SEG], ln, read_idx)
                     yield from emit_ready()
             read_idx += 1
+        flush_seqpar()
         if prefilter:
             flush_prescan()
             flush_cands()
@@ -361,19 +427,35 @@ class RecruitmentEngine:
 
 def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
                  threshold: int, batch_size: int = 256,
-                 seg_len: int = 32768, device="cuda") -> int:
+                 seg_len: int = 32768, device="cuda", mesh="auto",
+                 distributed: bool = False) -> int:
     """File-level entry point with the CLI contract of the reference rr binary
     (rr.cpp:43: unit.fasta reads.fasta[.gz] output.fasta threshold).
     Recruited reads stream to `output_fn` in input order, each in the
     form the JAX package's native reader gives it: its base codes
     decoded, so upper case with every letter but ACGT written as N.
-    Returns their number."""
+    Returns their number. mesh: as `RecruitmentEngine`'s.
+
+    distributed=True in a multi-process run (`parallel/distributed.
+    init_distributed`) shards the read stream round robin over the
+    processes (the reference's awk split + xargs -P fan-out,
+    run_read_recruitment.sh:35-44): each recruits its share on its own
+    devices and writes a partial file, and process 0 merges them in
+    global input order into the single-process file. Single-process runs
+    are unchanged."""
+    from centroflye_tpu_torch.parallel.distributed import process_count
+
+    if distributed and process_count() > 1:
+        return _recruit_file_distributed(
+            unit_fn, reads_fn, output_fn, threshold=threshold,
+            batch_size=batch_size, seg_len=seg_len, device=device,
+            mesh=mesh)
     from centroflye_tpu_torch.io.fasta import atomic_write, iter_seqs, read_seq
 
     unit = read_seq(unit_fn)
     engine = RecruitmentEngine(
         unit, RecruitmentConfig(threshold=threshold, batch_size=batch_size),
-        seg_len=seg_len, device=device)
+        seg_len=seg_len, device=device, mesh=mesh)
 
     # sequences are held only while their decision is pending, keyed by
     # input position, not id: duplicate ids stream through like rr's
@@ -392,6 +474,46 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
                 out.write(f">{res.r_id}\n{decode(encode(seq))}\n")
                 n_recruited += 1
     return n_recruited
+
+
+def _recruit_file_distributed(unit_fn: str, reads_fn: str, output_fn: str,
+                              *, threshold: int, batch_size: int,
+                              seg_len: int, device, mesh) -> int:
+    """`recruit_file`'s multi-process body: every process streams the
+    shared input, keeps its round-robin share, recruits it and writes
+    `output_fn.part{p}` with global ordinals in the headers; process 0
+    merges. Returns the global recruited count on process 0, the local
+    count elsewhere."""
+    import os
+
+    from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
+    from centroflye_tpu_torch.parallel.distributed import (
+        finish_partial, is_coordinator, merge_partial_fastas, partial_path,
+        shard_read_stream)
+
+    unit = read_seq(unit_fn)
+    engine = RecruitmentEngine(
+        unit, RecruitmentConfig(threshold=threshold, batch_size=batch_size),
+        seg_len=seg_len, device=device, mesh=mesh)
+    pending: collections.deque = collections.deque()   # (ordinal, seq)
+
+    def reads_iter():
+        for ordinal, (r_id, seq) in shard_read_stream(iter_seqs(reads_fn)):
+            pending.append((ordinal, seq))
+            yield r_id, seq
+
+    os.makedirs(os.path.dirname(os.path.abspath(output_fn)), exist_ok=True)
+    n_local = 0
+    with open(partial_path(output_fn), "w") as out:
+        for res in engine.run(reads_iter()):
+            ordinal, seq = pending.popleft()
+            if res.recruited:
+                out.write(f">{ordinal} {res.r_id}\n{decode(encode(seq))}\n")
+                n_local += 1
+    finish_partial(output_fn)
+    if is_coordinator():
+        return merge_partial_fastas(output_fn)
+    return n_local
 
 
 def main(argv=None):

@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch port (centroflye_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the main path's shapes (K1 two-strand, K2
-one-strand and K3 threshold-k banded HW Myers, K4 per-row-query Myers),
+one-strand and K3 threshold-k banded HW Myers, K4 per-row-query Myers, K5
+a Myers column chunk from a carried state),
 then drives read
 recruitment (stage 1 of cenX) on the real DXZ1 unit and a rel2-matched
 read mix, its file CLI, and the Myers op library's HW entry points (K2,
@@ -73,6 +74,16 @@ run of the array, pseudounits within 1% of it, and scaffold_0.fasta and
 idb/ the JAX package's files (CEN6_SCAFFOLD_DIGEST, CEN6_IDB_DIGEST,
 tools/cen6_vs_jax.py).
 
+Last, multi-device execution with the card as every device of the mesh
+(phase mesh): K5, the sequence-parallel tier's carry kernel, against its
+plain version on the whole carried state in HW, SHW and NW modes; the
+engine's sharded fused step on main_path's mix (its distances); the
+sequence-parallel tier on 8 reads of 100-400 kb (the single-device
+engine's distances); recruit_file(distributed=True) in 2 gloo processes
+(the single-process file, byte for byte); CenXPipeline and the cen6
+decomposer on 2-shard meshes (the single-device card runs' files); and
+the dry run, dryrun_multichip(4). K5 launches on no one-card path.
+
     python3 chip_smoke.py
 
 Each phase prints one JSON line with its seconds. Any failed check exits
@@ -88,6 +99,7 @@ import json
 import logging
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -107,18 +119,25 @@ from centroflye_tpu_torch.io.encoding import (decode, encode, kmer_codes,
 from centroflye_tpu_torch.io.fasta import (iter_seqs, read_seq, read_seqs,
                                            write_seqs)
 from centroflye_tpu_torch.mono import pipeline as mono_pipeline
-from centroflye_tpu_torch.mono import string_decomposer
 from centroflye_tpu_torch.mono.monostring import GAP
 from centroflye_tpu_torch.mono.pipeline import MonoPipeline
 from centroflye_tpu_torch.mono.string_decomposer import (
     MonomerDecomposer, MonomerDecomposerConfig)
 from centroflye_tpu_torch.ops import _build, fused_recruit, scoring
-from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
+from centroflye_tpu_torch.ops.myers import (build_peq, carry_init,
+                                            myers_carry_plain,
+                                            myers_distance_batch,
+                                            words_tensor)
 from centroflye_tpu_torch.ops.myers_cuda import (
-    GROUPS, PERROW_CALLS, BandedRun, banded_plan, myers_hw_2strand,
+    GROUPS, PERROW_CALLS, BandedRun, banded_plan, myers_carry,
+    myers_hw_2strand,
     myers_hw_2strand_plain, myers_hw_v3, myers_hw_v3_banded,
     myers_hw_v3_plain, myers_perrow, myers_perrow_plain, perrow_queries,
     pick_group, threshold_hw)
+from centroflye_tpu_torch.parallel import mesh as parallel_mesh
+from centroflye_tpu_torch.parallel import seq_parallel
+from centroflye_tpu_torch.parallel.dryrun import dryrun_multichip
+from centroflye_tpu_torch.parallel.mesh import make_mesh
 from centroflye_tpu_torch.pipeline.cenx import (CenXPipeline,
                                                 run_placement,
                                                 run_placement_validation,
@@ -155,6 +174,8 @@ K1_REPLACES = f"{PALLAS}:575"
 K2_REPLACES = f"{PALLAS}:188"
 K3_REPLACES = f"{PALLAS}:451"
 K4_REPLACES = "centroflye_tpu/ops/myers.py:113"   # a jnp scan, no pallas_call
+# K5 replaces the sequence-parallel tier's jnp chunk scan, no pallas_call
+K5_REPLACES = "centroflye_tpu/parallel/seq_parallel.py:86"
 CSRC = "centroflye_tpu_torch/csrc"
 # bound: 32-bit integer operations per query word per text column (the
 # add with its carry 2, d0 2, hp and hn 2, the two shifts 2, vp and vn 2,
@@ -233,6 +254,18 @@ K4_REPS = 50
 K4_WINDOWS = (32, 1024)
 K4_SAMPLE_EVERY = 16      # every 16th decomposer step timed on the device
 SPIN_CYCLES = 400_000     # a spin of about 0.2 ms queued ahead of a timing
+# phase mesh: meshes that repeat the one card; K5's checked chunk; the
+# sequence-parallel tier's reads (LONG_READS of 100-400 kb, half tandem
+# DXZ1 at 10% noise, half random); the processes of the multi-process run
+MESH_SHARDS = 4
+K5_ROWS = 8
+K5_CHUNK = 2048
+K5_SMALL_M = 90
+LONG_READS = 8
+LONG_LEN = (100_000, 400_000)
+LONG_SEED = 31
+DIST_PROCESSES = 2
+DIST_TIMEOUT_S = 300
 K4_SMALL_M = (1, 31, 32, 33, 64, 256)
 
 
@@ -285,6 +318,13 @@ def fresh_config():
 def sha256_of(fn):
     with open(fn, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
+
+
+def file_digests(root, skip=("metrics.json",)):
+    """{relative path: sha256} of every file under root but `skip`."""
+    return {os.path.relpath(os.path.join(r, n), root):
+            sha256_of(os.path.join(r, n))
+            for r, _, names in os.walk(root) for n in names if n not in skip}
 
 
 def emit(obj):
@@ -780,11 +820,16 @@ def phase_main_path(unit, dev):
         batches.append((codes, lens.copy()))
         return score_batch(codes, lens)
     exact.distances = capture
-    exact_set = {r.r_id for r in exact.run(reads) if r.recruited}
+    exact_results = list(exact.run(reads))
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t_exact
+    exact_set = {r.r_id for r in exact_results if r.recruited}
     check(exact_set == recruited,
           f"prefiltered != exact tier: {sorted(exact_set ^ recruited)[:10]}")
+    distances = {"prefilter": [(r.r_id, r.dist_fwd, r.dist_rc)
+                               for r in results],
+                 "exact": [(r.r_id, r.dist_fwd, r.dist_rc)
+                           for r in exact_results]}
     emit({"phase": "main_path", "reads": len(reads), "mbp": total_bp / 1e6,
           "cen_reads": len(cen), "recruited": len(recruited),
           "exact_tier_reads": len(reads), "exact_tier_equal": True,
@@ -792,7 +837,7 @@ def phase_main_path(unit, dev):
           "run_seconds": dt, "k1_launches": launches,
           "make_reads_seconds": t_make, "exact_tier_seconds": exact_s,
           "seconds": time.perf_counter() - t0})
-    return reads, recruited, launches, batches, exact.overlap
+    return reads, recruited, launches, batches, exact.overlap, distances
 
 
 def phase_myers_ops(unit, reads, recruited, batches, overlap, dev, rate):
@@ -1661,6 +1706,20 @@ def captured_fused_k1():
         fused_recruit.recruit_distances = score
 
 
+def plain_both_strands(peq_f, peq_r, text_t, lens, *, m):
+    """`myers_hw_2strand_plain`'s outputs from one plain call: the two
+    strands as 2B rows with per-row queries, so one column loop scores
+    both (the plain version is launch-bound at these row counts)."""
+    B, W = text_t.shape[1], peq_f.shape[1]
+    text = text_t.t()
+    out = myers_distance_batch(
+        torch.cat([peq_f.expand(B, 5, W), peq_r.expand(B, 5, W)]),
+        torch.cat([text, text]), torch.cat([lens, lens]).reshape(-1), m=m,
+        mode="HW")
+    return {"dist_f": out["dist"][:B], "end_f": out["end"][:B],
+            "dist_r": out["dist"][B:], "end_r": out["end"][B:]}
+
+
 def hold_fused_k1(captured, m, rate, threshold, path):
     """K1 against its plain version on every row of one fused step of
     `path`'s recruitment, at its segment length (PIPELINE_SEG_LEN
@@ -1682,7 +1741,7 @@ def hold_fused_k1(captured, m, rate, threshold, path):
     key, args, got = max(scored, key=lambda x: x[0])
     check(key[0], f"no captured fused step of {path} holds a "
           f"{PIPELINE_SEG_LEN}-column row")
-    want, plain_ms = timed_plain(lambda: myers_hw_2strand_plain(*args, m=m))
+    want, plain_ms = timed_plain(lambda: plain_both_strands(*args, m=m))
     err = max_abs_err(got, want)
     ms = time_cuda(lambda: myers_hw_2strand(*args, m=m), reps=5)
     rows = args[3].numel()
@@ -1835,11 +1894,7 @@ def phase_cenx_fresh(dev):
             finals[where] = pipe.run(reads_fn)
             seconds[where] = {**stage_s,
                               "k1_launches": myers_hw_2strand.launches}
-            files[where] = {
-                os.path.relpath(os.path.join(r, n), out): sha256_of(
-                    os.path.join(r, n))
-                for r, _, names in os.walk(out) for n in names
-                if n != "metrics.json"}
+            files[where] = file_digests(out)
     same = files["card"] == files["cpu"]
     emit({"phase": "cenx_fresh", "reads": len(reads),
           "artifacts": len(files["card"]), "identical": same,
@@ -1854,6 +1909,7 @@ def phase_cenx_fresh(dev):
     check(finals["card"] == finals["cpu"] == finals["resume"]
           and files["resume"] == files["card"],
           "cenx_fresh: the resumed run differs")
+    return files["card"]
 
 
 def k4_rows(rng, monomers, R, Wlen, dev):
@@ -2314,7 +2370,7 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     # that its events time the device's work alone; each launch's windows
     # and call
     events, queued, calls, steps = [], [], [0], []
-    perrow = string_decomposer.myers_perrow
+    perrow = parallel_mesh.myers_perrow
 
     def timed_perrow(queries, windows, *args, **kwargs):
         calls[0] += 1
@@ -2329,12 +2385,12 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
         e1.record()
         events.append((e0, e1))
         return out
-    string_decomposer.myers_perrow = timed_perrow
+    parallel_mesh.myers_perrow = timed_perrow
     t = time.perf_counter()
     try:
         sd = pipe.decompose(world.monomers, recruited)
     finally:
-        string_decomposer.myers_perrow = perrow
+        parallel_mesh.myers_perrow = perrow
     torch.cuda.synchronize()
     seconds["decomposition"] = time.perf_counter() - t
     # the device's time of the samples the host queued ahead of the card
@@ -2490,10 +2546,7 @@ def phase_cen6_fresh(dev):
                               "k4_launches": myers_perrow.launches}
             sds[where] = {r: (m.syms.tolist(), m.nucl.tolist(), m.strand)
                           for r, m in sd.monostrings.items()}
-            files[where] = {
-                os.path.relpath(os.path.join(r, n), out): sha256_of(
-                    os.path.join(r, n))
-                for r, _, names in os.walk(out) for n in names}
+            files[where] = file_digests(out, skip=())
     same = files["card"] == files["cpu"]
     emit({"phase": "cen6_fresh", "reads": len(reads),
           "files": len(files["card"]), "identical": same,
@@ -2505,6 +2558,372 @@ def phase_cen6_fresh(dev):
     check(same and any(f.startswith("polishing") for f in files["card"]),
           f"cen6_fresh: the card's files differ from the CPU's: "
           f"{sorted(k for k in files['card'] if files['card'][k] != files['cpu'].get(k))}")
+    return files["card"], sds["card"]
+
+
+def k5_case(rng, unit_codes, chunk):
+    """K5_ROWS rows over two chunks: tandem copies of the unit (rows 0, 2,
+    4) and of its reverse complement (1, 3, 5) with 8% substitutions, an
+    N run in row 2, random rows 6 and 7; lengths ending inside the first
+    chunk, inside the second, at its end, one column before it, past the
+    text, and 0."""
+    m, L = len(unit_codes), 2 * chunk
+    codes = rng.integers(0, 4, (K5_ROWS, L)).astype(np.int8)
+    for r in range(6):
+        src = unit_codes if r % 2 == 0 else revcomp(unit_codes)
+        row = np.tile(src, L // m + 1)[:L].copy()
+        flip = rng.random(L) < 0.08
+        row[flip] = rng.integers(0, 4, int(flip.sum()))
+        codes[r] = row
+    codes[2, 100:164] = 4
+    lens = np.array([L, L, chunk // 2, chunk + 700, L - 1, 5 * L, 0, L],
+                    np.int32)
+    return codes, lens
+
+
+def state_err(a, b):
+    """max_abs_err over every field of two carried states."""
+    return max(int((x.cpu().long() - y.cpu().long()).abs().max())
+               for x, y in zip(a, b))
+
+
+def k5_bound(lens, c0, chunk, words, rate):
+    """(bound_ms, bound_by) of one K5 chunk: 11 operations per query word
+    for each column a row scores in [c0, c0 + chunk), against its bytes
+    (those codes, the lens, the peq table, the state in and out)."""
+    cols = int(np.clip(np.asarray(lens, np.int64) - c0, 0, chunk).sum())
+    rows = len(lens)
+    ops = OPS_PER_WORD_COLUMN * words * cols
+    nbytes = cols + 4 * rows + 5 * 4 * words + 2 * rows * (8 * words + 16)
+    op_ms, byte_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def phase_k5(unit_codes, dev, rate):
+    """K5 against its plain version on the card: two chunks of K5_CHUNK
+    columns of `k5_case` in each mode, the second from the first's state
+    (a strided view of the text), the whole carried state compared; at
+    m = K5_SMALL_M also against the CPU's plain version. Returns the
+    kernel's fields (timed in HW mode on the second chunk)."""
+    rng = np.random.default_rng(5)
+    m, C = len(unit_codes), K5_CHUNK
+    codes, lens = k5_case(rng, unit_codes, C)
+    text, lens_t = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(
+        dev)
+    peq = words_tensor(build_peq(unit_codes), dev)
+    errs, plain_ms = {}, {}
+    for mode in ("HW", "SHW", "NW"):
+        st = carry_init(K5_ROWS, m, dev)
+        got1 = myers_carry(peq, text[:, :C], lens_t, st, 0, m=m, mode=mode)
+        want1, ms1 = timed_plain(lambda: myers_carry_plain(
+            peq, text[:, :C], lens_t, st, 0, m=m, mode=mode))
+        got2 = myers_carry(peq, text[:, C:], lens_t, want1, C, m=m, mode=mode)
+        want2, ms2 = timed_plain(lambda: myers_carry_plain(
+            peq, text[:, C:], lens_t, want1, C, m=m, mode=mode))
+        errs[mode] = max(state_err(got1, want1), state_err(got2, want2))
+        plain_ms[mode] = ms2
+        if mode == "HW":
+            mid = want1
+    small = unit_codes[:K5_SMALL_M]
+    sp = words_tensor(build_peq(small), "cpu")
+    for mode in ("HW", "SHW", "NW"):
+        st = carry_init(K5_ROWS, K5_SMALL_M, "cpu")
+        tc, lc = torch.from_numpy(codes[:, :600]), torch.from_numpy(
+            np.minimum(lens, 600))
+        want = myers_carry_plain(sp, tc, lc, st, 0, m=K5_SMALL_M, mode=mode)
+        got = myers_carry(sp.to(dev), tc.to(dev), lc.to(dev), st.to(dev), 0,
+                          m=K5_SMALL_M, mode=mode)
+        errs[f"{mode}_m{K5_SMALL_M}_cpu"] = state_err(got, want)
+    err = max(errs.values())
+    check(err == 0, f"K5 != its plain version: {errs}")
+    ms = time_cuda(lambda: myers_carry(peq, text[:, C:], lens_t, mid, C,
+                                       m=m, mode="HW"), reps=10)
+    bound_ms, bound_by = k5_bound(lens, C, C, peq.shape[1], rate)
+    return {"m": m, "rows": K5_ROWS, "chunk": C, "max_abs_err": err,
+            "errors": errs, "ms": ms, "plain_ms": plain_ms["HW"],
+            "plain_ms_by_mode": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def long_reads(unit):
+    """LONG_READS reads of LONG_LEN: even ones tandem copies of the unit
+    with 10% noise, odd ones random. Returns them and the tandem ids."""
+    rng = np.random.default_rng(LONG_SEED)
+    reads = []
+    for i, L in enumerate(rng.integers(LONG_LEN[0], LONG_LEN[1] + 1,
+                                       LONG_READS)):
+        L = int(L)
+        seq = (add_read_noise(rng, unit * (L // len(unit) + 2), 0.10)[:L]
+               if i % 2 == 0 else gen_random_seq(rng, L))
+        reads.append((f"long{i}", seq))
+    return reads, {r for i, (r, _) in enumerate(reads) if i % 2 == 0}
+
+
+DIST_WORKER = """
+import sys
+import torch.distributed as dist
+from centroflye_tpu_torch.parallel.distributed import init_distributed
+from centroflye_tpu_torch.stages.recruitment import recruit_file
+store, rank, n, unit_fn, reads_fn, out_fn, threshold, batch, seg, dev = \\
+    sys.argv[1:]
+assert init_distributed("file://" + store, int(n), int(rank))
+print(recruit_file(unit_fn, reads_fn, out_fn, int(threshold),
+                   batch_size=int(batch), seg_len=int(seg), device=dev,
+                   mesh=None, distributed=True), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def run_distributed(reads_fn, out_fn, store, dev):
+    """recruit_file(..., distributed=True) in DIST_PROCESSES processes of
+    one gloo group (a file store), each on `dev`. Returns process 0's
+    count and the processes' seconds; every process is ended."""
+    t0 = time.perf_counter()
+    args = [str(DIST_PROCESSES), UNIT_FASTA, reads_fn, out_fn,
+            str(THRESHOLD), str(BATCH_SIZE), str(SEG_LEN), str(dev)]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_WORKER, store,
+                               str(rank), *args], cwd=HERE, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in range(DIST_PROCESSES)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        check(p.returncode == 0, f"a recruit_file process failed: "
+              f"{err[-2000:]}")
+    return int(outs[0][0].split()[-1]), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def captured_seqpar_k5():
+    """Keeps every K5 launch of the sequence-parallel tier (its inputs,
+    the state it started from and the state it returned, by reference) in
+    the list it yields, for `hold_tier_k5` after the run."""
+    captured, carry = [], seq_parallel.myers_carry
+
+    def capture(peq, text, lens, state, c0, *, m, mode):
+        out = carry(peq, text, lens, state, c0, m=m, mode=mode)
+        captured.append(((peq, text, lens, state, c0), dict(m=m, mode=mode),
+                         out))
+        return out
+    seq_parallel.myers_carry = capture
+    try:
+        yield captured
+    finally:
+        seq_parallel.myers_carry = carry
+
+
+def hold_tier_k5(captured, rate):
+    """K5 against its plain version (on the CPU: one row's column loop is
+    launch-bound on the card) on the whole carried state of one launch
+    of the sequence-parallel tier, at the tier's own shape. Of the
+    launches whose rows all have columns in their chunk, it takes one
+    with a row within THRESHOLD, then the highest c0 (the state carried
+    through the most chunks), then a row ending inside the chunk (frozen
+    past its end). Returns its fields."""
+    check(captured, "the sequence-parallel tier launched K5 no time")
+
+    def key(launch):
+        (_, text, lens, _, c0), _, out = launch
+        return (bool((lens > c0).all()), int(out.best.min()) <= THRESHOLD,
+                c0, bool((lens < c0 + text.shape[1]).any()))
+    args, kw, got = max(captured, key=key)
+    check(key((args, kw, got))[:2] == (True, True), "no K5 launch of the "
+          "tier holds an active row within the threshold")
+    peq, text, lens, state, c0 = args
+    t = time.perf_counter()
+    want = myers_carry_plain(peq.cpu(), text.cpu(), lens.cpu(), state.to(
+        "cpu"), c0, **kw)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = state_err(got, want)
+    check(err == 0, f"K5 != its plain version on the tier's launch at c0 = "
+          f"{c0} ({tuple(text.shape)}, {kw})")
+    ms = time_cuda(lambda: myers_carry(*args, **kw), reps=3)
+    bound_ms, bound_by = k5_bound(lens.cpu().numpy(), c0, text.shape[1],
+                                  peq.shape[1], rate)
+    return {"rows": text.shape[0], "chunk": text.shape[1], "c0": c0,
+            "lens": lens.cpu().tolist(), "best": got.best.cpu().tolist(),
+            "mode": kw["mode"], "launches_captured": len(captured),
+            "max_abs_err": err, "ms": ms, "plain_cpu_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_mesh(unit, reads, recruited, distances, cenx_files, mono_files,
+               dev, rate):
+    """Multi-device execution with the card as every device of the mesh:
+    K5 against its plain version (`phase_k5`); main_path's mix through
+    the engine on a MESH_SHARDS-shard mesh (the fused step sharded, K1 on
+    each shard) gives main_path's per-read distances with the seq-par
+    tier off, and with the default config (prefilter and seq-par tier
+    on) main_path's recruited set, its distances below
+    seq_parallel_min_len and the exact tier's at and above it; LONG_READS
+    long reads through the mesh engine's sequence-parallel tier (K5) give
+    the single-device engine's segmented distances (prefilter off in
+    both), and one of that run's last-stage K5 launches equals the plain
+    version on the whole carried state (`hold_tier_k5`);
+    recruit_file(distributed=True) in DIST_PROCESSES gloo processes
+    writes the single-process file byte for byte; CenXPipeline on
+    cenx_fresh's world and the cen6 decomposer on cen6_fresh's world, on
+    2-shard meshes, write the single-device card runs' files; and the dry
+    run on a MESH_SHARDS-device mesh. Returns K5's fields and launches."""
+    t0 = time.perf_counter()
+    seconds = {}
+    t = time.perf_counter()
+    k5 = phase_k5(encode(unit), dev, rate)
+    seconds["k5"] = time.perf_counter() - t
+    mesh = make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    mesh2 = make_mesh(2, devices=[dev] * 2)
+
+    t = time.perf_counter()
+    # the fused tier alone (seq-par tier off): every read's distances are
+    # main_path's
+    cfg = RecruitmentConfig(threshold=THRESHOLD, batch_size=BATCH_SIZE,
+                            seq_parallel_min_len=0)
+    engine = RecruitmentEngine(unit, cfg, seg_len=SEG_LEN, device=dev,
+                               mesh=mesh)
+    myers_hw_2strand.launches = 0
+    got = [(r.r_id, r.dist_fwd, r.dist_rc) for r in engine.run(reads)]
+    torch.cuda.synchronize()
+    k1_sharded = myers_hw_2strand.launches
+    seconds["fused_mesh"] = time.perf_counter() - t
+    check(engine.mesh.size == MESH_SHARDS and engine._fused.n_dev ==
+          MESH_SHARDS, "the engine did not take the mesh")
+    check(k1_sharded > 0, "the sharded fused step launched K1 no time")
+    want = distances["prefilter"]
+    check(got == want, "the sharded engine's distances differ from "
+          f"main_path's: {[a for a, b in zip(got, want) if a != b][:5]}")
+
+    # the configuration a multi-card user runs: the prefilter and the
+    # seq-par tier both on. Reads below seq_parallel_min_len keep
+    # main_path's distances; the longer ones, which skip the host
+    # prescan, get the exact tier's; the recruited set is main_path's
+    t = time.perf_counter()
+    cfg = RecruitmentConfig(threshold=THRESHOLD, batch_size=BATCH_SIZE)
+    engine = RecruitmentEngine(unit, cfg, seg_len=SEG_LEN, device=dev,
+                               mesh=mesh)
+    myers_carry.launches = 0
+    results = list(engine.run(reads))
+    torch.cuda.synchronize()
+    k5_default = myers_carry.launches
+    seconds["default_mesh"] = time.perf_counter() - t
+    long_ids = {r for r, s in reads if len(s) >= engine.seqpar_min}
+    want = [e if e[0] in long_ids else p for p, e in
+            zip(distances["prefilter"], distances["exact"])]
+    got = [(r.r_id, r.dist_fwd, r.dist_rc) for r in results]
+    mesh_set = {r.r_id for r in results if r.recruited}
+    check(long_ids and k5_default > 0, f"{len(long_ids)} reads of main_path "
+          f"took the seq-par tier, K5 launched {k5_default} times")
+    check(got == want, "the default mesh engine's distances differ: "
+          f"{[(a, b) for a, b in zip(got, want) if a != b][:5]}")
+    check(mesh_set == recruited, "the default mesh engine recruited "
+          f"{sorted(mesh_set ^ recruited)[:10]} unlike main_path")
+
+    t = time.perf_counter()
+    longs, tandem = long_reads(unit)
+    exact = RecruitmentConfig(threshold=THRESHOLD, batch_size=BATCH_SIZE,
+                              prefilter=False)
+    want = [(r.r_id, r.dist_fwd, r.dist_rc, r.recruited)
+            for r in RecruitmentEngine(unit, exact, seg_len=PIPELINE_SEG_LEN,
+                                       device=dev, mesh=None).run(longs)]
+    seg_s = time.perf_counter() - t
+    t = time.perf_counter()
+    engine = RecruitmentEngine(unit, exact, seg_len=PIPELINE_SEG_LEN,
+                               device=dev, mesh=mesh)
+    check(engine.seqpar_min == exact.seq_parallel_min_len
+          and min(len(s) for _, s in longs) >= engine.seqpar_min,
+          "the long reads do not take the sequence-parallel tier")
+    myers_carry.launches = 0
+    with captured_seqpar_k5() as tier_launches:
+        got = [(r.r_id, r.dist_fwd, r.dist_rc, r.recruited)
+               for r in engine.run(longs)]
+        torch.cuda.synchronize()
+    k5_launches = myers_carry.launches
+    seconds["seqpar"] = time.perf_counter() - t
+    check(k5_launches > 0, "the sequence-parallel tier launched K5 no time")
+    check(got == want, f"seq-par distances {got} != segmented {want}")
+    check({r for r, _, _, rec in got if rec} == tandem,
+          f"seq-par recruited {[r for r, _, _, rec in got if rec]}")
+    t = time.perf_counter()
+    k5["tier_launch"] = hold_tier_k5(tier_launches, rate)
+    del tier_launches
+    seconds["tier_launch"] = time.perf_counter() - t
+    k5["max_abs_err"] = max(k5["max_abs_err"],
+                            k5["tier_launch"]["max_abs_err"])
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reads_fn = os.path.join(tmp, "reads.fasta")
+        write_seqs(reads_fn, dict(reads[:CLI_READS]))
+        single_fn = os.path.join(tmp, "single.fasta")
+        n_single = recruit_file(UNIT_FASTA, reads_fn, single_fn, THRESHOLD,
+                                batch_size=BATCH_SIZE, seg_len=SEG_LEN,
+                                device=dev, mesh=None)
+        out_fn = os.path.join(tmp, "distributed.fasta")
+        n_dist, dist_s = run_distributed(reads_fn, out_fn,
+                                         os.path.join(tmp, "store"), dev)
+        same_file = sha256_of(single_fn) == sha256_of(out_fn)
+    seconds["distributed"] = time.perf_counter() - t
+    check(n_dist == n_single > 0 and same_file,
+          f"{DIST_PROCESSES} processes wrote {n_dist} reads, one wrote "
+          f"{n_single}; files equal: {same_file}")
+
+    t = time.perf_counter()
+    unit_f, _, reads_f = fresh_world()
+    with tempfile.TemporaryDirectory() as tmp:
+        reads_fn = os.path.join(tmp, "reads.fasta")
+        write_seqs(reads_fn, reads_f)
+        out = os.path.join(tmp, "out")
+        CenXPipeline(unit_f, fresh_config(), out, device=dev,
+                     mesh=mesh2).run(reads_fn)
+        cenx_mesh = file_digests(out)
+    seconds["cenx_mesh"] = time.perf_counter() - t
+    check(cenx_mesh == cenx_files, "CenXPipeline on a 2-shard mesh: files "
+          f"differ: {sorted(k for k in cenx_files if cenx_mesh.get(k) != cenx_files[k])}")
+
+    t = time.perf_counter()
+    monomers, _, _, reads6 = mono_fresh_world()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        pipe = MonoPipeline(mono_fresh_config(), out, device=dev)
+        myers_perrow.launches = 0
+        sd = pipe.decompose(monomers, reads6.items(), mesh=mesh2)
+        k4_sharded = myers_perrow.launches
+        pipe.run(sd, reads6)
+        mono_mesh = file_digests(out, skip=())
+    seconds["cen6_mesh"] = time.perf_counter() - t
+    sds = {r: (ms.syms.tolist(), ms.nucl.tolist(), ms.strand)
+           for r, ms in sd.monostrings.items()}
+    check(k4_sharded > 0, "the sharded decomposer launched K4 no time")
+    check(sds == mono_files[1] and mono_mesh == mono_files[0],
+          "the 2-shard decomposer's SDReport or files differ")
+
+    t = time.perf_counter()
+    dry = dryrun_multichip(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    seconds["dryrun"] = time.perf_counter() - t
+    emit({"phase": "mesh", "shards": MESH_SHARDS,
+          "k5": {k: v for k, v in k5.items() if k != "library_ms"},
+          "fused_mesh": {"reads": len(reads), "equal": True,
+                         "k1_launches": k1_sharded},
+          "default_mesh": {"reads": len(reads), "recruited": len(mesh_set),
+                           "seqpar_reads": len(long_ids),
+                           "k5_launches": k5_default, "equal": True},
+          "seqpar": {"reads": len(longs), "mbp": sum(
+              len(s) for _, s in longs) / 1e6, "equal": True,
+              "k5_launches": k5_launches, "segmented_seconds": seg_s},
+          "distributed": {"processes": DIST_PROCESSES,
+                          "reads": CLI_READS, "recruited": n_dist,
+                          "identical": True, "processes_seconds": dist_s},
+          "cenx_mesh_files": len(cenx_mesh), "cen6_mesh_files":
+          len(mono_mesh), "cen6_k4_launches": k4_sharded, "dryrun": dry,
+          "phase_seconds": seconds, "seconds": time.perf_counter() - t0})
+    return k5, k5_launches
 
 
 def valid_score(cfg, score0, score1):
@@ -2540,11 +2959,14 @@ def main():
     k2 = phase_k2(k1_state, k1["ms"], m, rate)
     k3 = phase_k3(encode(unit), dev, k1["ms"], k2["ms"], rate)
     k4 = phase_k4(dev, rate)
-    reads, recruited, launches, batches, overlap = phase_main_path(unit, dev)
+    myers_carry.launches = 0
+    reads, recruited, launches, batches, overlap, distances = \
+        phase_main_path(unit, dev)
+    k5_by_path = {"main_path": myers_carry.launches}
     phase_cli(reads, recruited, dev)
     ops_launches, at_2048 = phase_myers_ops(unit, reads, recruited, batches,
                                             overlap, dev, rate)
-    phase_cenx_fresh(dev)
+    cenx_files = phase_cenx_fresh(dev)
     t = time.perf_counter()
     world = make_world(unit, N_UNITS)
     world_s = time.perf_counter() - t
@@ -2557,10 +2979,12 @@ def main():
         phase_placement(world, dec, res, dev, outdir)
         del res, dec
         background = [(r, s) for r, s in reads if r not in recruited]
+        myers_carry.launches = 0
         pipeline_launches, k1_pipeline, _ = phase_cenx_pipeline(
             unit, world, background, dev, outdir, rate)
+        k5_by_path["cenx_pipeline"] = myers_carry.launches
     del world
-    phase_cen6_fresh(dev)
+    mono_files = phase_cen6_fresh(dev)
     t = time.perf_counter()
     world6 = cen6_world()
     emit({"phase": "cen6_world", "reads": len(world6.reads),
@@ -2569,8 +2993,15 @@ def main():
           "array_bp": int(world6.bounds[-1]),
           "seconds": time.perf_counter() - t})
     with tempfile.TemporaryDirectory() as outdir:
+        myers_carry.launches = 0
         cen6_launches, k1_cen6, _, _ = phase_cen6_pipeline(
             world6, reads, dev, outdir, rate)
+        k5_by_path["cen6_pipeline"] = myers_carry.launches
+    del world6
+    check(not any(k5_by_path.values()), f"K5 launched on a one-card path "
+          f"(auto_mesh is None there): {k5_by_path}")
+    k5, k5_by_path["mesh"] = phase_mesh(unit, reads, recruited, distances,
+                                        cenx_files, mono_files, dev, rate)
     for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kernel.setdefault("instances", {}).update(at_2048[key])
     k1["instances"].update(k1_pipeline)
@@ -2600,7 +3031,11 @@ def main():
         {"name": "myers_perrow", "route": "cuda",
          "source": f"{CSRC}/myers_perrow.cu", "replaces": K4_REPLACES,
          "launches": cen6_launches["k4"], "launches_by_path": by_path["k4"],
-         **k4}]})
+         **k4},
+        {"name": "myers_carry", "route": "cuda",
+         "source": f"{CSRC}/myers_carry.cu", "replaces": K5_REPLACES,
+         "launches": k5_by_path["mesh"], "launches_by_path": k5_by_path,
+         **k5}]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -31,6 +31,7 @@ import chip_smoke as cs
 from centroflye_tpu_torch import config as tconfig
 from centroflye_tpu_torch import native as tnative
 from centroflye_tpu_torch.ops.align_path import align_path
+from centroflye_tpu_torch.parallel import mesh as tmesh
 from centroflye_tpu_torch.pipeline import cenx as tcenx
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -272,24 +273,66 @@ def test_config_json_round_trip():
     dict(polisher=tconfig.PolisherConfig(error_mode="pacbio"))],
     ids=["threads", "mono", "parallel", "error_mode"])
 def test_pipeline_rejects_settings_it_does_not_run(change, tmp_path):
-    """A setting the config carries for the JAX package's JSON but the
-    port's pipeline does not read raises off its default, in the class
-    and through the CLI's --config; at its default it passes."""
+    """No setting that the JAX pipeline accepts is rejected: threads,
+    mono and polisher.error_mode are carried and not read on the cenX
+    path (as in the JAX package), and parallel.n_devices only sizes the
+    automatic mesh over several cards (none on the CPU). The settings
+    survive the CLI's --config JSON. What the pipeline cannot run, a
+    mesh of cards for a CPU run, it rejects with the setting."""
     cfg = tconfig.CentroFlyeConfig().replace(**change)
-    assert tcenx.unrun_settings(cfg) == [
-        "polisher.error_mode" if "polisher" in change else next(iter(change))]
-    with pytest.raises(ValueError, match="does not run"):
-        tcenx.CenXPipeline("ACGT", cfg, str(tmp_path), device="cpu")
-    cfg_fn, unit_fn = str(tmp_path / "config.json"), str(tmp_path / "u.fa")
+    pipe = tcenx.CenXPipeline("ACGT", cfg, str(tmp_path), device="cpu")
+    assert pipe.config == cfg and pipe.mesh is None
+    assert not hasattr(tcenx, "unrun_settings")
+    assert tconfig.CentroFlyeConfig.from_json(cfg.to_json()) == cfg
+    cards = tmesh.Mesh(["cuda:0", "cuda:1"])
+    with pytest.raises(ValueError, match="cuda devices for a cpu run"):
+        tcenx.CenXPipeline("ACGT", cfg, str(tmp_path), device="cpu",
+                           mesh=cards)
+
+
+def test_cli_runs_a_config_with_every_unread_setting_off_default(
+        runs, tmp_path, capsys):
+    """A JAX-written --config with threads, mono, parallel and
+    polisher.error_mode all off their defaults runs through the port's
+    CLI on the CPU and writes the files of the run with default
+    settings."""
+    jcfg = _jax_config().replace(
+        threads=4, mono=jconfig.MonoConfig(min_k=50, max_uniq_cov=30),
+        parallel=jconfig.ParallelConfig(data_axis="data", n_devices=4),
+        polisher=dataclasses.replace(_jax_config().polisher,
+                                     error_mode="pacbio"))
+    default = jconfig.CentroFlyeConfig()
+    for name in ("threads", "mono", "parallel"):
+        assert getattr(jcfg, name) != getattr(default, name)
+    assert jcfg.polisher.error_mode != default.polisher.error_mode
+    unit_fn = str(tmp_path / "unit.fasta")
+    write_seqs(unit_fn, {"unit": runs["unit"]})
+    cfg_fn = str(tmp_path / "config.json")
     with open(cfg_fn, "w") as f:
-        f.write(cfg.to_json())
-    with open(unit_fn, "w") as f:
-        f.write(">unit\nACGT\n")
-    with pytest.raises(ValueError, match="does not run"):
-        tcenx.main(["-i", unit_fn, "-o", str(tmp_path / "out"),
-                    "-u", unit_fn, "-c", "4", "--config", cfg_fn,
-                    "--device", "cpu"])
-    assert tcenx.unrun_settings(tconfig.CentroFlyeConfig()) == []
+        f.write(jcfg.to_json())
+    out = str(tmp_path / "out")
+    tcenx.main(["-i", runs["reads_fn"], "-o", out, "-u", unit_fn, "-c", "4",
+                "--config", cfg_fn, "--device", "cpu"])
+    assert f"final assembly length: {len(runs['tfinal'])}" in \
+        capsys.readouterr().out
+    files = _files(out)
+    assert {n: files[n] for n in ARTIFACTS} == \
+        {n: runs["tfiles"][n] for n in ARTIFACTS}
+
+
+def test_pipeline_on_a_two_device_mesh_writes_the_same_files(runs,
+                                                            tmp_path):
+    """CenXPipeline with a mesh of two CPU devices (stages 1 and 3
+    sharded) writes every file of the run without a mesh."""
+    out = str(tmp_path / "mesh")
+    pipe = tcenx.CenXPipeline(runs["unit"], cs.fresh_config(), out,
+                              device="cpu",
+                              mesh=tmesh.make_mesh(2, devices=["cpu"] * 2))
+    assert pipe.mesh.size == 2
+    assert pipe.run(runs["reads_fn"]) == runs["tfinal"]
+    files = _files(out)
+    assert {n: files[n] for n in ARTIFACTS} == \
+        {n: runs["tfiles"][n] for n in ARTIFACTS}
 
 
 def test_cuda_pipeline_raises_without_cuda(tmp_path):

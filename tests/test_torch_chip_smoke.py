@@ -175,6 +175,69 @@ def test_hold_fused_k1_takes_a_mixed_full_batch(monkeypatch):
     assert fields["batches_captured"] == 3
 
 
+@pytest.mark.parametrize("m", [40, 90])
+def test_plain_both_strands_is_the_two_strand_plain(m):
+    """plain_both_strands (both strands as one plain call of 2B rows with
+    per-row queries), which hold_fused_k1 takes as K1's reference, gives
+    myers_hw_2strand_plain's four outputs on a mixed batch: ragged lens,
+    N runs, tandem rows on both strands, random rows."""
+    import torch
+
+    import chip_smoke as cs
+    from centroflye_tpu_torch.ops.myers_cuda import myers_hw_2strand_plain
+    rng = np.random.default_rng(m)
+    unit = rng.integers(0, 4, m).astype(np.int8)
+    pf, pr, text_t, lens = cs.k1_case(rng, unit, m, 600, 24, "cpu")
+    want = myers_hw_2strand_plain(pf, pr, text_t, lens, m=m)
+    got = cs.plain_both_strands(pf, pr, text_t, lens, m=m)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key].long(), want[key].long()), key
+    d = torch.minimum(want["dist_f"], want["dist_r"])
+    assert int(d.min()) < m // 4 and int(d.max()) > m // 2
+
+
+def test_hold_tier_k5_holds_a_last_stage_launch(monkeypatch):
+    """captured_seqpar_k5 keeps the sequence-parallel tier's K5 launches
+    (here K5's plain route, on a 4-device CPU mesh), and hold_tier_k5
+    holds the last-stage one whose row lies within the threshold and
+    ends inside the chunk (not the random row's, nor the empty row's)
+    against the plain version on the whole carried state; a state that
+    differs in one VP bit fails it."""
+    import chip_smoke as cs
+    from centroflye_tpu_torch.ops import myers_cuda
+    from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
+    from centroflye_tpu_torch.parallel import seq_parallel as sp
+    monkeypatch.setattr(cs, "THRESHOLD", 6)
+    monkeypatch.setattr(cs, "time_cuda", lambda fn, reps: fn() and 0.0)
+    rng = np.random.default_rng(4)
+    m, L = 40, 1200
+    unit = rng.integers(0, 4, m).astype(np.int8)
+    text = rng.integers(0, 4, (3, L)).astype(np.int8)
+    text[0] = np.tile(unit, L // m)[:L]
+    flip = rng.random(L) < 0.03
+    text[0, flip] = rng.integers(0, 4, int(flip.sum()))
+    lens = np.array([L - 100, L, 0], np.int32)
+    mesh = sp.make_seq_mesh(4, devices=["cpu"] * 4)
+    peq = words_tensor(build_peq(unit), "cpu")
+    with cs.captured_seqpar_k5() as captured:
+        out = sp.myers_distance_seqparallel(peq, text, lens, m=m,
+                                            mesh=mesh)
+    assert len(captured) == 3 * 4
+    assert sp.myers_carry is myers_cuda.myers_carry
+    assert int(out["dist"][0]) <= 6
+    fields = cs.hold_tier_k5(captured, 1e13)
+    assert fields["c0"] == 3 * L // 4 and fields["chunk"] == L // 4
+    assert fields["rows"] == 1 and fields["lens"] == [L - 100]
+    assert fields["max_abs_err"] == 0 and fields["mode"] == "HW"
+    assert fields["best"] == [int(out["dist"][0])]
+    for (_, _, _, _, c0), _, state in captured:
+        if c0 == 3 * L // 4:
+            state.vp[0, 0] ^= 1
+    with pytest.raises(SystemExit, match="K5 != its plain version"):
+        cs.hold_tier_k5(captured, 1e13)
+
+
 def test_cen6_world_is_the_bench_shape():
     """chip_smoke's copies of benchmarks/bench_mono_cen6.py's array and
     read-length mix give the bench's draws, bit for bit; the world's
