@@ -38,7 +38,7 @@ SIGNATURES = {
                            _P],
     "cf_myers_perrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cf_myers_carry": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

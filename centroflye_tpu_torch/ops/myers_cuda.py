@@ -34,7 +34,9 @@ set (`perrow_queries`) is checked and laid out once, not at every step.
 K5, `myers_carry`, runs one chunk of text columns for B rows from a
 carried DP state (`ops/myers.CarryState`) and returns the new state: the
 sequence-parallel tier's step (`parallel/seq_parallel.py`), in HW, SHW
-and NW modes.
+and NW modes. Like K1 it is a wavefront over G = 8 or 32 lanes a row
+(`pick_group(B, 1)`, or the keyword `group`), with the state in its
+canonical layout.
 """
 
 from __future__ import annotations
@@ -55,15 +57,15 @@ SMALL_BATCH = 512       # (row, strand) problems at or below which G = 32
 
 
 def pick_group(B: int, strands: int) -> int:
-    """Lanes per (row, strand) for a batch of B rows. Up to SMALL_BATCH
-    problems, G = 32 gives each problem a warp and each warp its own
-    scheduler (the H100 has 528), and the time is one warp's chain of
-    dependent steps, which 32 lanes make the shortest. Above it the warps
-    share schedulers and integer issue sets the time: G = 8 has the fewest
-    idle word slots and the least fixed work per word. Measured at 128 and
-    2048 rows on DXZ1 only (W = 65 words, PERF.md): a short query with few
-    words leaves most of a 32-lane group idle, so a caller at another m
-    should measure before relying on the rule."""
+    """Lanes per (row, strand) for a batch of B rows, for K1, K2 and K5.
+    Up to SMALL_BATCH problems, G = 32 gives each problem a warp and each
+    warp its own scheduler (the H100 has 528), and the time is one warp's
+    chain of dependent steps, which 32 lanes make the shortest. Above it
+    the warps share schedulers and integer issue sets the time: G = 8 has
+    the fewest idle word slots and the least fixed work per word.
+    Measured for K1 at 128 and 2048 rows on DXZ1 (W = 65 words); for K5
+    (one strand) at 1, 8 and 512 rows (G = 32 faster, at 8 rows for every
+    m from 1 to 4096) and at 2048 rows (G = 8 faster) (PERF.md)."""
     return 32 if B * strands <= SMALL_BATCH else 8
 
 
@@ -573,16 +575,21 @@ CARRY_MODES = {"HW": 0, "SHW": 1, "NW": 1}    # 1: a 1 shifted into hp
 
 
 def myers_carry(peq, text, lens, state: CarryState, c0: int, *, m: int,
-                mode="HW") -> CarryState:
+                mode="HW", group=None) -> CarryState:
     """K5: the global columns [c0, c0 + C) of a (B, C) int8 `text` chunk
     (rows may be strided, columns contiguous) from `state`, on text's
     device -> the new state (fresh tensors). peq: (5, W) int64 words;
     lens: (B,) int32 global lengths; state on the same device. A column
-    at or past a row's length leaves its state as it is. For CPU tensors
-    it runs `ops/myers.myers_carry_plain`; on a CUDA tensor it launches
-    K5 and synchronises nothing."""
+    at or past a row's length leaves its state as it is. `group`: lanes a
+    row, 8 or 32 (None: `pick_group(B, 1)`). For CPU tensors it runs
+    `ops/myers.myers_carry_plain`; on a CUDA tensor it launches K5 and
+    synchronises nothing."""
     if mode not in CARRY_MODES:
         raise ValueError(f"mode={mode!r}: one of {tuple(CARRY_MODES)}")
+    if text.dim() != 2:
+        raise ValueError(f"text must be (B, C), got {tuple(text.shape)}")
+    B, C = text.shape
+    group = _group(group, B, 1)
     dev = text.device
     if dev.type == "cpu":
         return myers_carry_plain(peq, text, lens, state, c0, m=m, mode=mode)
@@ -591,13 +598,12 @@ def myers_carry(peq, text, lens, state: CarryState, c0: int, *, m: int,
     W = n_words(m)
     if m < 1 or W > MAX_WORDS:
         raise ValueError(f"m={m}: K5 takes 1 <= m <= {32 * MAX_WORDS}")
-    if text.dim() != 2 or text.dtype != torch.int8 or text.stride(1) != 1:
+    if text.dtype != torch.int8 or text.stride(1) != 1:
         raise ValueError(f"text must be (B, C) int8 with contiguous "
                          f"columns, got {text.dtype} {tuple(text.shape)} "
                          f"strides {text.stride()}")
     if c0 < 0:
         raise ValueError(f"c0={c0} < 0")
-    B, C = text.shape
     _check("peq", peq, torch.int64, (5, W), dev)
     _check("lens", lens, torch.int32, (B,), dev)
     for name in ("vp", "vn"):
@@ -615,7 +621,7 @@ def myers_carry(peq, text, lens, state: CarryState, c0: int, *, m: int,
             pq.data_ptr(), text.data_ptr(), lens.data_ptr(),
             state.vp.data_ptr(), state.vn.data_ptr(), sc_in.data_ptr(),
             vp.data_ptr(), vn.data_ptr(), sc.data_ptr(), m, W, C, B,
-            max(text.stride(0), C), c0, CARRY_MODES[mode], stream)
+            max(text.stride(0), C), c0, CARRY_MODES[mode], group, stream)
     _raise_on(rc, "cf_myers_carry")
     myers_carry.launches += 1
     return CarryState(vp, vn, sc[0], sc[1], sc[2], sc[3])

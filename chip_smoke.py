@@ -75,8 +75,10 @@ idb/ the JAX package's files (CEN6_SCAFFOLD_DIGEST, CEN6_IDB_DIGEST,
 tools/cen6_vs_jax.py).
 
 Last, multi-device execution with the card as every device of the mesh
-(phase mesh): K5, the sequence-parallel tier's carry kernel, against its
-plain version on the whole carried state in HW, SHW and NW modes; the
+(phase mesh): K5, the sequence-parallel tier's carry kernel, at every
+lane group G, against its plain version on the whole carried state in
+HW, SHW and NW modes, with its times by G and its one-warp issue floor
+(the SASS of its column loop, tools/probe_myers_wavefront.py); the
 engine's sharded fused step on main_path's mix (its distances); the
 sequence-parallel tier on 8 reads of 100-400 kb (the single-device
 engine's distances); recruit_file(distributed=True) in 2 gloo processes
@@ -260,7 +262,14 @@ SPIN_CYCLES = 400_000     # a spin of about 0.2 ms queued ahead of a timing
 MESH_SHARDS = 4
 K5_ROWS = 8
 K5_CHUNK = 2048
-K5_SMALL_M = 90
+# K5's query lengths against the CPU's plain version, on two chunks of
+# K5_SWEEP_CHUNK columns: the tap word and tap lane at every word and
+# lane-group boundary; K5_LONG: one row of the tier's launch width;
+# K5_WIDE: rows on either side of pick_group's switch, timed by G
+K5_M_SWEEP = (1, 31, 32, 33, 64, 90, 2055, 3222, 4096)
+K5_SWEEP_CHUNK = 300
+K5_LONG = 98_304
+K5_WIDE = (512, 2048)
 LONG_READS = 8
 LONG_LEN = (100_000, 400_000)
 LONG_SEED = 31
@@ -2599,12 +2608,128 @@ def k5_bound(lens, c0, chunk, words, rate):
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
 
+def k5_per_column():
+    """{G: SASS instructions per column} of K5's column loop at DXZ1's
+    width, from the built library (tools/probe_myers_wavefront.py)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import probe_myers_wavefront
+    per_column = probe_myers_wavefront.per_column(_build.build(), "k5")
+    check(sorted(per_column) == sorted(GROUPS), "K5's column loops: "
+          f"{per_column}")
+    return per_column
+
+
+def k5_issue_floor(per_column, cols, rate):
+    """One warp's issue floor (ms) of a K5 launch whose busiest row
+    scores `cols` columns: its column loop's instructions per column at
+    one instruction a clock, the card's maximum SM clock (from `rate`)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per_column * cols / (rate / (sms * INT32_LANES_PER_SM_CLOCK)) * 1e3
+
+
+def k5_sweep(dev):
+    """K5, every G, against the CPU's plain version at every m of
+    K5_M_SWEEP in each mode: a random query, K5_ROWS rows (row 0 tandem
+    copies of it, lengths ending before, inside and past the chunk, and
+    0), the second of two chunks of K5_SWEEP_CHUNK columns from the
+    first's carried state. Returns ({case: max_abs_err}, {m: {G: ms}}),
+    timed in HW mode."""
+    rng = np.random.default_rng(6)
+    C = K5_SWEEP_CHUNK
+    lens = torch.tensor([2 * C, 0, C // 2, C + 5, 2 * C - 1, 2 * C, C,
+                         5 * C], dtype=torch.int32)
+    errs, ms = {}, {}
+    for m in K5_M_SWEEP:
+        q = rng.integers(0, 4, m).astype(np.int8)
+        peq = words_tensor(build_peq(q), "cpu")
+        text = rng.integers(0, 5, (K5_ROWS, 2 * C)).astype(np.int8)
+        text[0] = np.tile(q, 2 * C // m + 2)[:2 * C]
+        text = torch.from_numpy(text)
+        args = (peq.to(dev), text[:, C:].to(dev), lens.to(dev))
+        for mode in ("HW", "SHW", "NW"):
+            mid = myers_carry_plain(peq, text[:, :C], lens,
+                                    carry_init(K5_ROWS, m, "cpu"), 0, m=m,
+                                    mode=mode)
+            want = myers_carry_plain(peq, text[:, C:], lens, mid, C, m=m,
+                                     mode=mode)
+            for g in GROUPS:
+                got = myers_carry(*args, mid.to(dev), C, m=m, mode=mode,
+                                  group=g)
+                errs[f"{mode}_m{m}_g{g}_cpu"] = state_err(got, want)
+            if mode == "HW":
+                mid_d = mid.to(dev)
+                ms[m] = {g: time_cuda(lambda g=g: myers_carry(
+                    *args, mid_d, C, m=m, mode="HW", group=g), reps=10)
+                    for g in GROUPS}
+    return errs, ms
+
+
+def k5_by_group(peq, text, m, reps):
+    """K5 on (B, C) `text` of full-length rows from the initial state,
+    HW, every G: the states must agree. Returns ({G: state}, {G: ms})."""
+    B, C = text.shape
+    lens = torch.full((B,), C, dtype=torch.int32, device=text.device)
+    st = carry_init(B, m, text.device)
+    outs = {g: myers_carry(peq, text, lens, st, 0, m=m, group=g)
+            for g in GROUPS}
+    check(all(state_err(outs[g], outs[GROUPS[0]]) == 0 for g in GROUPS),
+          f"K5's lane groups differ on {B} x {C}")
+    ms = {g: time_cuda(lambda g=g: myers_carry(peq, text, lens, st, 0, m=m,
+                                               group=g), reps=reps)
+          for g in GROUPS}
+    return outs, ms
+
+
+def noisy_tandem(rng, unit_codes, rows, L):
+    """`rows` rows of L codes: tandem copies of the unit with 10%
+    substitutions."""
+    codes = np.tile(unit_codes, L // len(unit_codes) + 1)[:L]
+    codes = np.repeat(codes[None], rows, axis=0)
+    flip = rng.random(codes.shape) < 0.10
+    return np.where(flip, rng.integers(0, 4, codes.shape), codes).astype(
+        np.int8)
+
+
+def k5_long(unit_codes, dev, rate, per_column):
+    """One tandem DXZ1 row of K5_LONG columns (the tier's launch width)
+    by G (`k5_by_group`), with the picked G's time, the bound and the
+    issue floor."""
+    m = len(unit_codes)
+    peq = words_tensor(build_peq(unit_codes), dev)
+    text = torch.from_numpy(noisy_tandem(np.random.default_rng(7),
+                                         unit_codes, 1, K5_LONG)).to(dev)
+    outs, ms = k5_by_group(peq, text, m, reps=3)
+    G = pick_group(1, 1)
+    bound_ms, bound_by = k5_bound([K5_LONG], 0, K5_LONG, peq.shape[1], rate)
+    return {"rows": 1, "chunk": K5_LONG, "c0": 0, "mode": "HW",
+            "best": int(outs[G].best[0]), "groups_equal": True, "group": G,
+            "ms": ms[G], "ms_by_group": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "issue_floor_ms": k5_issue_floor(
+                per_column[G], K5_LONG, rate)}
+
+
+def k5_wide(unit_codes, dev):
+    """K5_WIDE rows of K5_CHUNK columns (every other row tandem DXZ1, the
+    rest random) by G (`k5_by_group`). Returns {rows: {G: ms}}."""
+    rng = np.random.default_rng(8)
+    peq = words_tensor(build_peq(unit_codes), dev)
+    out = {}
+    for B in K5_WIDE:
+        codes = rng.integers(0, 4, (B, K5_CHUNK)).astype(np.int8)
+        codes[::2] = noisy_tandem(rng, unit_codes, (B + 1) // 2, K5_CHUNK)
+        _, out[B] = k5_by_group(peq, torch.from_numpy(codes).to(dev),
+                                len(unit_codes), reps=5)
+    return out
+
+
 def phase_k5(unit_codes, dev, rate):
-    """K5 against its plain version on the card: two chunks of K5_CHUNK
-    columns of `k5_case` in each mode, the second from the first's state
-    (a strided view of the text), the whole carried state compared; at
-    m = K5_SMALL_M also against the CPU's plain version. Returns the
-    kernel's fields (timed in HW mode on the second chunk)."""
+    """K5, every G, against its plain version on the card: two chunks of
+    K5_CHUNK columns of `k5_case` in each mode, the second from the
+    first's state (a strided view of the text), the whole carried state
+    compared; then `k5_sweep` against the CPU's plain version. Times
+    every G in HW mode on the second chunk and on one row of K5_LONG
+    columns (`k5_long`), beside the bound and the picked G's issue floor,
+    and on K5_WIDE rows (`k5_wide`). Returns the kernel's fields."""
     rng = np.random.default_rng(5)
     m, C = len(unit_codes), K5_CHUNK
     codes, lens = k5_case(rng, unit_codes, C)
@@ -2614,35 +2739,40 @@ def phase_k5(unit_codes, dev, rate):
     errs, plain_ms = {}, {}
     for mode in ("HW", "SHW", "NW"):
         st = carry_init(K5_ROWS, m, dev)
-        got1 = myers_carry(peq, text[:, :C], lens_t, st, 0, m=m, mode=mode)
-        want1, ms1 = timed_plain(lambda: myers_carry_plain(
-            peq, text[:, :C], lens_t, st, 0, m=m, mode=mode))
-        got2 = myers_carry(peq, text[:, C:], lens_t, want1, C, m=m, mode=mode)
-        want2, ms2 = timed_plain(lambda: myers_carry_plain(
+        want1 = myers_carry_plain(peq, text[:, :C], lens_t, st, 0, m=m,
+                                  mode=mode)
+        want2, plain_ms[mode] = timed_plain(lambda: myers_carry_plain(
             peq, text[:, C:], lens_t, want1, C, m=m, mode=mode))
-        errs[mode] = max(state_err(got1, want1), state_err(got2, want2))
-        plain_ms[mode] = ms2
+        for g in GROUPS:
+            got1 = myers_carry(peq, text[:, :C], lens_t, st, 0, m=m,
+                               mode=mode, group=g)
+            got2 = myers_carry(peq, text[:, C:], lens_t, want1, C, m=m,
+                               mode=mode, group=g)
+            errs[f"{mode}_g{g}"] = max(state_err(got1, want1),
+                                       state_err(got2, want2))
         if mode == "HW":
             mid = want1
-    small = unit_codes[:K5_SMALL_M]
-    sp = words_tensor(build_peq(small), "cpu")
-    for mode in ("HW", "SHW", "NW"):
-        st = carry_init(K5_ROWS, K5_SMALL_M, "cpu")
-        tc, lc = torch.from_numpy(codes[:, :600]), torch.from_numpy(
-            np.minimum(lens, 600))
-        want = myers_carry_plain(sp, tc, lc, st, 0, m=K5_SMALL_M, mode=mode)
-        got = myers_carry(sp.to(dev), tc.to(dev), lc.to(dev), st.to(dev), 0,
-                          m=K5_SMALL_M, mode=mode)
-        errs[f"{mode}_m{K5_SMALL_M}_cpu"] = state_err(got, want)
+    sweep_errs, sweep_ms = k5_sweep(dev)
+    errs.update(sweep_errs)
     err = max(errs.values())
-    check(err == 0, f"K5 != its plain version: {errs}")
-    ms = time_cuda(lambda: myers_carry(peq, text[:, C:], lens_t, mid, C,
-                                       m=m, mode="HW"), reps=10)
+    wrong = {k: v for k, v in errs.items() if v}
+    check(err == 0, f"K5 != its plain version: {wrong}")
+    per_column = k5_per_column()
+    ms = {g: time_cuda(lambda g=g: myers_carry(
+        peq, text[:, C:], lens_t, mid, C, m=m, mode="HW", group=g), reps=10)
+        for g in GROUPS}
+    G = pick_group(K5_ROWS, 1)
     bound_ms, bound_by = k5_bound(lens, C, C, peq.shape[1], rate)
+    cols = int(np.clip(lens - C, 0, C).max())
     return {"m": m, "rows": K5_ROWS, "chunk": C, "max_abs_err": err,
-            "errors": errs, "ms": ms, "plain_ms": plain_ms["HW"],
+            "errors": errs, "group": G, "ms": ms[G], "ms_by_group": ms,
+            "issue_floor_ms": k5_issue_floor(per_column[G], cols, rate),
+            "sass_per_column": per_column, "plain_ms": plain_ms["HW"],
             "plain_ms_by_mode": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "sweep_ms_by_group": sweep_ms,
+            "long": k5_long(unit_codes, dev, rate, per_column),
+            "wide_ms_by_group": k5_wide(unit_codes, dev)}
 
 
 def long_reads(unit):
@@ -2723,11 +2853,12 @@ def captured_seqpar_k5():
 def hold_tier_k5(captured, rate):
     """K5 against its plain version (on the CPU: one row's column loop is
     launch-bound on the card) on the whole carried state of one launch
-    of the sequence-parallel tier, at the tier's own shape. Of the
-    launches whose rows all have columns in their chunk, it takes one
+    of the sequence-parallel tier, at the tier's own shape, every G. Of
+    the launches whose rows all have columns in their chunk, it takes one
     with a row within THRESHOLD, then the highest c0 (the state carried
     through the most chunks), then a row ending inside the chunk (frozen
-    past its end). Returns its fields."""
+    past its end). Returns its fields: ms by G, the picked G's, and the
+    busiest row's columns."""
     check(captured, "the sequence-parallel tier launched K5 no time")
 
     def key(launch):
@@ -2742,17 +2873,22 @@ def hold_tier_k5(captured, rate):
     want = myers_carry_plain(peq.cpu(), text.cpu(), lens.cpu(), state.to(
         "cpu"), c0, **kw)
     plain_ms = (time.perf_counter() - t) * 1e3
-    err = state_err(got, want)
+    err = max(state_err(got, want), *(state_err(
+        myers_carry(*args, **kw, group=g), want) for g in GROUPS))
     check(err == 0, f"K5 != its plain version on the tier's launch at c0 = "
           f"{c0} ({tuple(text.shape)}, {kw})")
-    ms = time_cuda(lambda: myers_carry(*args, **kw), reps=3)
+    ms = {g: time_cuda(lambda g=g: myers_carry(*args, **kw, group=g),
+                       reps=3) for g in GROUPS}
+    G = pick_group(text.shape[0], 1)
     bound_ms, bound_by = k5_bound(lens.cpu().numpy(), c0, text.shape[1],
                                   peq.shape[1], rate)
     return {"rows": text.shape[0], "chunk": text.shape[1], "c0": c0,
             "lens": lens.cpu().tolist(), "best": got.best.cpu().tolist(),
             "mode": kw["mode"], "launches_captured": len(captured),
-            "max_abs_err": err, "ms": ms, "plain_cpu_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "max_abs_err": err, "group": G, "ms": ms[G], "ms_by_group": ms,
+            "cols": int((lens.cpu() - c0).clamp(0, text.shape[1]).max()),
+            "plain_cpu_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase_mesh(unit, reads, recruited, distances, cenx_files, mono_files,
@@ -2851,7 +2987,9 @@ def phase_mesh(unit, reads, recruited, distances, cenx_files, mono_files,
     check({r for r, _, _, rec in got if rec} == tandem,
           f"seq-par recruited {[r for r, _, _, rec in got if rec]}")
     t = time.perf_counter()
-    k5["tier_launch"] = hold_tier_k5(tier_launches, rate)
+    k5["tier_launch"] = tier = hold_tier_k5(tier_launches, rate)
+    tier["issue_floor_ms"] = k5_issue_floor(
+        k5["sass_per_column"][tier["group"]], tier["cols"], rate)
     del tier_launches
     seconds["tier_launch"] = time.perf_counter() - t
     k5["max_abs_err"] = max(k5["max_abs_err"],

@@ -5,10 +5,11 @@ of its 8 virtual CPU devices and the port's single-device scan
 (`ops/myers.myers_distance_batch`), in HW, SHW and NW modes, on ragged
 shapes and on tandem reads of the real DXZ1 unit. The plain K5 chained
 over chunks of any size carries the whole state of the unchunked scan.
+K5's wrapper checks its lane group, and `pick_group` picks one.
 The recruitment engine's seq-par tier (forced by a small
 `seq_parallel_min_len`) gives the JAX engine's and the single-device
-engine's distances. The `gpu` tests hold K5 against its plain version on
-the card, on the whole carried state."""
+engine's distances. The `gpu` tests hold K5, at every lane group G,
+against its plain version on the card, on the whole carried state."""
 
 import os
 
@@ -30,7 +31,8 @@ from centroflye_tpu_torch import config as tconfig
 from centroflye_tpu_torch.ops.myers import (
     CarryState, carry_init, carry_result, myers_carry_plain,
     myers_distance_batch, words_tensor)
-from centroflye_tpu_torch.ops.myers_cuda import myers_carry
+from centroflye_tpu_torch.ops.myers_cuda import (
+    GROUPS, myers_carry, pick_group)
 from centroflye_tpu_torch.parallel import seq_parallel as tsp
 from centroflye_tpu_torch.stages import recruitment as trec
 
@@ -119,8 +121,15 @@ def test_seqparallel_real_unit_tandem_reads():
     assert got["dist"][0] < 0.15 * m and got["dist"][2] > 0.5 * m
 
 
+# query lengths that put K5's tap word and tap lane at every word and
+# lane-group boundary: 1 word, a full word, 2 words, 3 (m = 90), and
+# DXZ1's 65, D6Z1's 101 and the largest, 128 (spare slots below word 0 at
+# G = 8 and 32, or none)
+M_SWEEP = [1, 31, 32, 33, 64, 90, 2055, 3222, 4096]
+
+
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("m", [1, 32, 33, 70])
+@pytest.mark.parametrize("m", sorted({70, *M_SWEEP}))
 def test_plain_k5_chained_over_chunks_carries_the_whole_state(mode, m):
     """The plain K5 run chunk by chunk (chunks of 1, 7 and 64 columns,
     rows ending inside a chunk, past the text and at 0) ends in the same
@@ -157,6 +166,41 @@ def test_carry_state_and_wrapper_checks():
                     torch.zeros(3, 4, dtype=torch.int8),
                     torch.zeros(3, dtype=torch.int32), st, 0, m=40,
                     mode="XX")
+
+
+def test_k5_group_checks_and_c_signature():
+    """`group` is 8, 32 or None, checked before any route: anything else
+    raises, on the CPU too, where 8 and 32 give the plain version's state.
+    The C entry point takes the group: 9 pointers, 8 ints, the stream."""
+    import ctypes
+
+    from centroflye_tpu_torch.ops import _build
+    rng = np.random.default_rng(3)
+    m = 40
+    peq = words_tensor(jbuild_peq(rng.integers(0, 4, m).astype(np.int8)),
+                       "cpu")
+    text = torch.from_numpy(rng.integers(0, 5, (3, 50)).astype(np.int8))
+    lens = torch.tensor([50, 20, 0], dtype=torch.int32)
+    st = carry_init(3, m, "cpu")
+    want = myers_carry_plain(peq, text, lens, st, 0, m=m)
+    for g in (8, 32, None):
+        got = myers_carry(peq, text, lens, st, 0, m=m, group=g)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for g in (0, 1, 16, 64, True, "32"):
+        with pytest.raises(ValueError, match="group"):
+            myers_carry(peq, text, lens, st, 0, m=m, group=g)
+    sig = _build.SIGNATURES["cf_myers_carry"]
+    assert len(sig) == 18
+    assert sig[:9] == [ctypes.c_void_p] * 9
+    assert sig[9:17] == [ctypes.c_int] * 8 and sig[17] is ctypes.c_void_p
+
+
+@pytest.mark.parametrize("B, G", [(1, 32), (8, 32), (512, 32), (513, 8),
+                                  (2048, 8)])
+def test_k5_group_rule(B, G):
+    """K5's lane group is K1's rule on one strand: G = 32 while each
+    row's group has a scheduler (B <= SMALL_BATCH), else G = 8."""
+    assert pick_group(B, 1) == G
 
 
 def _engine_reads(seed):
@@ -204,13 +248,13 @@ def test_engine_seqpar_tier_equals_jax_and_single_device(n):
 
 
 def k5_against_plain_on_gpu(seed: int):
-    """K5 on the card against its plain version (on the card and on the
-    CPU) from a carried mid-read state, every mode, at m from 1 to 4096,
-    rows ending before, inside and past the chunk: the whole state must
-    be equal."""
+    """K5 on the card, every G, against its plain version (on the card
+    and on the CPU) from a carried mid-read state, every mode, at every m
+    of M_SWEEP, rows ending before, inside and past the chunk: the whole
+    state must be equal."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    for m in (1, 33, 90, 2055, 4096):
+    for m in M_SWEEP:
         for mode in MODES:
             B, C = 8, 300
             q = rng.integers(0, 4, m).astype(np.int8)
@@ -227,13 +271,14 @@ def k5_against_plain_on_gpu(seed: int):
                                      mode=mode)
             args = (peq.to(dev), text[:, C:].to(dev), lens.to(dev),
                     mid.to(dev), C)
-            before = myers_carry.launches
-            got = myers_carry(*args, m=m, mode=mode)
-            assert myers_carry.launches == before + 1
             on_card = myers_carry_plain(*args, m=m, mode=mode)
-            for g, w, p in zip(got, want, on_card):
-                assert torch.equal(g.cpu(), w) and torch.equal(g, p), \
-                    (m, mode)
+            for g in GROUPS:
+                before = myers_carry.launches
+                got = myers_carry(*args, m=m, mode=mode, group=g)
+                assert myers_carry.launches == before + 1
+                for a, w, p in zip(got, want, on_card):
+                    assert torch.equal(a.cpu(), w) and torch.equal(a, p), \
+                        (m, mode, g)
 
 
 @pytest.mark.gpu

@@ -1,15 +1,18 @@
-"""SASS count of the column loop of the port's HW Myers kernel (K1 and K2,
-`centroflye_tpu_torch/csrc/myers_hw_2strand.cu`).
+"""SASS count of the column loops of the port's Myers wavefront kernels:
+K1 and K2 (`centroflye_tpu_torch/csrc/myers_hw_2strand.cu`) and K5
+(`centroflye_tpu_torch/csrc/myers_carry.cu`).
 
-    python3 tools/probe_myers_wavefront.py [--before OLD.cu] [--sass-dir DIR]
+    python3 tools/probe_myers_wavefront.py [--before OLD.cu ...] [--sass-dir DIR]
 
 Builds the port's kernels, disassembles them with cuobjdump and prints,
 one JSON line each, the instructions of the innermost loop of DXZ1's
 instances (m = 2055, W = 65: G = 8 with 9 words a lane, G = 32 with 3),
-per loop and per column, with the opcodes. With --before, the same for
-OLD.cu, an earlier version of the source whose kernel is
-`myers_hw_kernel<3, ...>` (one column a loop). With --sass-dir, each
-loop's SASS is written there. Needs nvcc and cuobjdump; no card.
+per loop and per column, with the opcodes. With --before (once or more),
+the same for OLD.cu, an earlier version of either source whose kernel is
+`myers_hw_kernel<3, ...>` or `myers_carry_kernel<3>` (one column a
+loop). With --sass-dir, each loop's SASS is written there. Needs nvcc
+and cuobjdump; no card. `chip_smoke.py` takes K5's per-column counts
+from `per_column` for its issue floor.
 """
 
 import argparse
@@ -26,9 +29,12 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 from centroflye_tpu_torch.ops import _build  # noqa: E402
 
-UNROLL = 4       # kUnroll of the source: columns in one loop body
-AFTER = r"myers_hw_wavefrontILi(8ELi9|32ELi3)E"
-BEFORE = r"myers_hw_kernelILi3E"
+UNROLL = 4       # kUnroll of both sources: columns in one loop body
+# kernel -> (its DXZ1 instances now, the earlier kernel's name)
+KERNELS = {"k1": (r"myers_hw_wavefrontILi(8ELi9|32ELi3)E",
+                  r"myers_hw_kernelILi3E"),
+           "k5": (r"myers_carry_wavefrontILi(8ELi9|32ELi3)E",
+                  r"myers_carry_kernelILi3E")}
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                   r"([^;]*);")
 
@@ -76,19 +82,29 @@ def sass_loops(path, pattern, dump_dir=None):
     return found
 
 
+def per_column(lib, kernel="k5"):
+    """{G: instructions per column} of the column loop of `kernel`'s
+    DXZ1 instances in the library `lib` (K5's: the issue floor)."""
+    return {int(re.search(r"ILi(\d+)E", name).group(1)): n / UNROLL
+            for name, n, _ in sass_loops(lib, KERNELS[kernel][0])}
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--before", help="an earlier myers_hw_2strand.cu")
+    ap.add_argument("--before", action="append", default=[],
+                    help="an earlier myers_hw_2strand.cu or myers_carry.cu")
     ap.add_argument("--sass-dir", help="write each loop's SASS here")
     args = ap.parse_args()
-    libs = {"after": (_build.build(), AFTER, UNROLL)}
-    if args.before:
-        lib = os.path.join(_build.BUILD_DIR, "probe_before.so")
+    runs = [("after", _build.build(), "|".join(
+        p for p, _ in KERNELS.values()), UNROLL)]
+    for k, old in enumerate(args.before):
+        lib = os.path.join(_build.BUILD_DIR, f"probe_before{k}.so")
         subprocess.run([_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3",
-                        "-Xcompiler", "-fPIC", "-shared", "-o", lib,
-                        args.before], check=True)
-        libs["before"] = (lib, BEFORE, 1)
-    for when, (lib, pattern, columns) in libs.items():
+                        "-Xcompiler", "-fPIC", "-shared", "-o", lib, old],
+                       check=True)
+        runs.append(("before", lib, "|".join(
+            b for _, b in KERNELS.values()), 1))
+    for when, lib, pattern, columns in runs:
         for name, n, ops in sass_loops(lib, pattern, args.sass_dir):
             print(json.dumps({"sass": when, "kernel": name,
                               "loop_instructions": n,
