@@ -41,6 +41,22 @@ decomposer (`mono/string_decomposer.py`), whose lockstep steps run on
 kernel K4, per-row-query Myers (`csrc/myers_perrow.cu`, the counterpart
 of the JAX package's `ops/myers.myers_distance_batch` scan), and host
 copies of the monostring, SD report, error correction, monomer de
-Bruijn and scaffolding modules. Not ported yet: the multi-device paths,
-the native reader (`seqio.cpp`) and `stages/unit_extraction.py`.
+Bruijn and scaffolding modules.
+
+Also ported: multi-device execution (`parallel/`: a device mesh, the
+sharded steps of stages 1 and 3 and of the monomer decomposer, the
+sequence-parallel long-read tier on kernel K5, `csrc/myers_carry.cu`,
+and the multi-process file driver); the native reader and one-scan
+2-bit packer (`native/seqio.cpp`) that feed stage 1's fill; the
+simulator's read sets and CLI (`pipeline/simulate.py`), the NCRF-like
+report writer (`stages/ncrf_compat.py`), de novo unit extraction and
+its CLI (`stages/unit_extraction.py`), and the end-to-end cenX runner
+(`python -m centroflye_tpu_torch.run_all_cenx`). The unit and monomer
+FASTA files the port reads are its own copies, in `data/`.
 """
+
+import os
+
+from centroflye_tpu_torch.config import CentroFlyeConfig  # noqa: F401
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")

@@ -75,6 +75,30 @@ def compress_homopolymer(seq: str) -> str:
     return "".join(out)
 
 
+def min_cyclic_shift(s: str) -> str:
+    """Lexicographically least rotation, by Booth's algorithm (O(n))."""
+    if not s:
+        return s
+    ds = s + s
+    n = len(s)
+    i, j = 0, 1
+    k = 0
+    while i < n and j < n and k < n:
+        a, b = ds[i + k], ds[j + k]
+        if a == b:
+            k += 1
+            continue
+        if a > b:
+            i = max(i + k + 1, j)
+        else:
+            j = max(j + k + 1, i)
+        if i == j:
+            j += 1
+        k = 0
+    start = min(i, j)
+    return ds[start:start + n]
+
+
 def kmer_codes(codes: np.ndarray, k: int, *, length: int | None = None):
     """All k-mer 2-bit codes of a code array (host, numpy).
 

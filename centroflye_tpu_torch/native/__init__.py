@@ -1,17 +1,22 @@
-"""ctypes bindings to the port's native Myers engine.
+"""ctypes bindings to the port's native runtime.
 
-`myers.cpp` and `cfnative.h` beside this file are the JAX package's
-native alignment engine, copied: 64-bit-word Myers edit distance in the
-NW, SHW and HW modes, with a banded early-out, and alignment paths with
-traceback. The library is built with g++ on first use into
+`myers.cpp`, `seqio.cpp` and `cfnative.h` beside this file are the JAX
+package's native runtime, copied:
+- a 64-bit-word Myers edit-distance engine in the NW, SHW and HW modes,
+  with a banded early-out, and alignment paths with traceback;
+- a streaming FASTA/FASTQ reader (plain or gzipped, through zlib) that
+  writes int8 base codes, and two 2-bit packers for stage 1's fill: one
+  over a code matrix (`cf_pack2bit`) and one straight from ASCII bases
+  (`cf_encode_pack_row`, encode and pack in one scan).
+The library is built with g++ on first use into
 `centroflye_tpu_torch/_build/`, under a name that carries a hash of the
-source and the flags, so an edited source builds anew. A failed build
-raises: nothing falls back to another path. The JAX package's reader and
-2-bit packer (`seqio.cpp`, which links zlib) are not part of it.
+sources and the flags, so an edited source builds anew. A failed build
+raises: nothing falls back to another path.
 
 The wrappers take and return what the JAX package's `native` wrappers
 do, except that they raise where those return None for a missing
-library.
+library or symbol. `native_pack2bit` still returns None for a row
+length that is not a multiple of 8: that is its contract on the shape.
 """
 
 from __future__ import annotations
@@ -22,18 +27,22 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from centroflye_tpu_torch.io.encoding import encode
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("myers.cpp", "cfnative.h")
+SOURCES = ("myers.cpp", "seqio.cpp", "cfnative.h")
+COMPILED = tuple(n for n in SOURCES if n.endswith(".cpp"))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 # no -march=native: the library must load on whichever host runs it
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
              "-shared"]
+# after the sources: g++ links --as-needed on some systems, and drops a
+# library named before the objects that use it
+LDLIBS = ["-lz"]
 
 MODE_NW, MODE_SHW, MODE_HW = 0, 1, 2
 _MODES = {"NW": MODE_NW, "SHW": MODE_SHW, "HW": MODE_HW}
@@ -44,6 +53,11 @@ _I64 = ctypes.c_int64
 _PI32 = ctypes.POINTER(ctypes.c_int32)
 # C entry points: name -> (restype, argtypes)
 SIGNATURES = {
+    "cf_reader_open": (_P, [ctypes.c_char_p]),
+    "cf_reader_close": (None, [_P]),
+    "cf_reader_next": (_I64, [_P, _P, _I64, ctypes.c_char_p, _I32]),
+    "cf_pack2bit": (_I32, [_P, _I64, _I64, _P, _P, _P]),
+    "cf_encode_pack_row": (_I32, [ctypes.c_char_p, _I64, _I64, _P, _I64]),
     "cf_edit_distance": (_I32, [_P, _I32, _P, _I32, _I32, _I32, _PI32]),
     "cf_edit_distance_batch": (None, [_P, _I32, _P, _P, _I32, _I32, _I32,
                                       _I32, _P, _P]),
@@ -57,7 +71,7 @@ SIGNATURES = {
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LDLIBS).encode())
     for name in SOURCES:
         with open(os.path.join(_DIR, name), "rb") as f:
             h.update(name.encode() + f.read())
@@ -65,8 +79,8 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile myers.cpp with g++ unless the library for this source and
-    these flags exists. Returns its path; raises if g++ is missing or
+    """Compile the sources with g++ unless the library for these sources
+    and flags exists. Returns its path; raises if g++ is missing or
     fails. The build writes a private file and renames it into place, so
     processes that build at once do not see each other's half-written
     library."""
@@ -80,12 +94,13 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [cxx, *CXX_FLAGS, os.path.join(_DIR, "myers.cpp"), "-o", tmp],
+        [cxx, *CXX_FLAGS, *(os.path.join(_DIR, n) for n in COMPILED),
+         "-o", tmp, *LDLIBS],
         capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"g++ failed on native/myers.cpp:\n"
+        raise RuntimeError(f"g++ failed on native/{' '.join(COMPILED)}:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
@@ -165,6 +180,76 @@ def native_hw_locate(query: str, target: str
         return None
     d, _, st, en = res
     return d, st, en
+
+
+def get_encode_pack():
+    """The raw ctypes `cf_encode_pack_row`: encode and 2-bit pack the
+    ASCII bases seq[start:start + length] straight into one packed row,
+    one scan, no int8 intermediate. Signature: (seq_bytes, start, length,
+    out_ptr, out_bytes) -> 1 if a non-ACGT character was in range (the
+    caller routes the row to the exact tier), 0 if clean, -1 if out_bytes
+    is too small. Callers do their own pointer arithmetic per row: this
+    is the streaming engine's fill."""
+    return load_library().cf_encode_pack_row
+
+
+def get_pack2bit_row():
+    """The raw ctypes `cf_pack2bit`, for one row of int8 codes at a time
+    (the native reader's input): the caller passes rows=1 and a
+    one-element lens array; it returns 1 if an in-range code is >= 4."""
+    return load_library().cf_pack2bit
+
+
+def native_iter_seqs(path: str, max_len: int = 1 << 24
+                     ) -> Iterator[Tuple[str, np.ndarray]]:
+    """Stream (r_id, int8 code array) records through the native reader:
+    FASTA or FASTQ, plain or gzipped. The id runs to the first space, tab
+    or carriage return; a FASTQ record holds one sequence line; an id of
+    4,096 bytes or more is a parse error. A record longer than max_len
+    doubles the buffer but keeps the cap at max_len, as the JAX package
+    does, and the reader has by then consumed its head: such a record is
+    skipped."""
+    lib = load_library()
+    handle = lib.cf_reader_open(path.encode())
+    if not handle:
+        raise FileNotFoundError(path)
+    codes = np.empty(max_len, dtype=np.int8)
+    id_buf = ctypes.create_string_buffer(4096)
+    try:
+        while True:
+            n = lib.cf_reader_next(handle, codes.ctypes.data, max_len,
+                                   id_buf, 4096)
+            if n == -1:
+                return
+            if n == -2:
+                codes = np.empty(codes.size * 2, dtype=np.int8)
+                continue
+            if n < 0:
+                raise RuntimeError(f"parse error in {path}")
+            yield id_buf.value.decode("ascii"), codes[:n].copy()
+    finally:
+        lib.cf_reader_close(handle)
+
+
+def native_pack2bit(codes: np.ndarray, lens: Optional[np.ndarray] = None):
+    """One-scan 2-bit packer (`cf_pack2bit`): (B, L) int8 codes ->
+    (packed (B, L/4) uint8, n_mask (B, L/8) uint8 or None), the contract
+    of `ops/fused_recruit.pack_2bit`. None where L is not a multiple
+    of 8."""
+    lib = load_library()
+    B, L = codes.shape
+    if L % 8:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    packed = np.empty((B, L // 4), dtype=np.uint8)
+    n_mask = np.empty((B, L // 8), dtype=np.uint8)
+    lens_ptr = None
+    if lens is not None:
+        lens = np.ascontiguousarray(lens, dtype=np.int32)
+        lens_ptr = lens.ctypes.data
+    any_n = lib.cf_pack2bit(codes.ctypes.data, B, L, lens_ptr,
+                            packed.ctypes.data, n_mask.ctypes.data)
+    return packed, (n_mask if any_n else None)
 
 
 def _padded(seqs, stride: int) -> Tuple[np.ndarray, np.ndarray]:

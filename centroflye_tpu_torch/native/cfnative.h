@@ -1,10 +1,14 @@
-/* centroflye_tpu_torch native runtime — C API.
+/* centroflye_tpu native runtime — C API.
  *
- * The 64-bit-word Myers bit-parallel edit-distance engine with optional
- * traceback (the edlib role of the reference's C/C++ inventory), built
- * from myers.cpp beside this header. The alignment half of the JAX
- * package's native/cfnative.h, copied; its reader and 2-bit packer
- * (seqio.cpp, which links zlib) are not part of this library.
+ * Native counterparts of the reference's C/C++ inventory
+ * (reference scripts/read_recruitment/: rr.cpp + vendored edlib + kseq):
+ *  - a streaming gzip FASTA/FASTQ reader with inline 2-bit packing
+ *    (the data-loader role of kseq.h), and
+ *  - a 64-bit-word Myers bit-parallel edit-distance engine with optional
+ *    traceback (the edlib role) used for host-side parity checks of the
+ *    TPU kernel and for alignment-path extraction.
+ * Both are original implementations designed around this engine's data
+ * model (int8 base codes, batch buffers ready for device upload).
  */
 
 #ifndef CFNATIVE_H_
@@ -76,6 +80,39 @@ void cf_align_path_pairs(const int8_t* queries, const int32_t* qlens,
                          int32_t* dists, int32_t* t_starts,
                          int32_t* t_ends,
                          char* cigar_buf, int64_t cigar_cap);
+
+/* ---- streaming sequence reader ------------------------------------ */
+
+typedef struct cf_reader cf_reader;
+
+/* Open FASTA/FASTQ, plain or gzip (by magic bytes). NULL on failure. */
+cf_reader* cf_reader_open(const char* path);
+void cf_reader_close(cf_reader* r);
+
+/* Read the next record. Writes the base codes (0..4) into codes_buf
+ * (cap bytes) and the record id into id_buf (id_cap incl. NUL).
+ * Returns sequence length (>= 0), -1 on EOF, -2 on buffer overflow
+ * (call again with bigger buffers; the record is NOT consumed), -3 parse
+ * error. */
+int64_t cf_reader_next(cf_reader* r, int8_t* codes_buf, int64_t cap,
+                       char* id_buf, int32_t id_cap);
+
+/* ---- batch packing ------------------------------------------------- */
+
+/* 2-bit pack a padded row-major (rows x len) code matrix (len % 8 == 0):
+ * writes packed (rows x len/4, 4 codes/byte little-endian) and n_mask
+ * (rows x len/8, bit b = code >= 4 at col 8q+b). Codes >= 4 pack as 0.
+ * Positions at or beyond lens[r] (lens nullable = all full) never set
+ * mask bits — they are don't-care for the device kernels. Returns 1 if
+ * any in-range code >= 4 was seen, else 0 (n_mask then all zero). */
+int32_t cf_pack2bit(const int8_t* codes, int64_t rows, int64_t len,
+                    const int32_t* lens, uint8_t* packed, uint8_t* n_mask);
+
+/* Encode + 2-bit pack ASCII bases seq[start : start+len] into one packed
+ * row of out_bytes (zero-filled past len). Non-ACGT characters pack as 0;
+ * returns 1 if any were seen, 0 otherwise, -1 if out_bytes is too small. */
+int32_t cf_encode_pack_row(const char* seq, int64_t start, int64_t len,
+                           uint8_t* out, int64_t out_bytes);
 
 #ifdef __cplusplus
 }

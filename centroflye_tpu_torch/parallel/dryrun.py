@@ -21,8 +21,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "centroflye_tpu", "data")
 
 
 def warm_devices(devices) -> None:
@@ -59,6 +57,7 @@ def dryrun_multichip(n_devices: int,
     from centroflye_tpu_torch.ops.myers import (build_peq,
                                                 myers_distance_batch,
                                                 words_tensor)
+    from centroflye_tpu_torch import DATA_DIR
     from centroflye_tpu_torch.ops.scoring import clouds_to_bitmaps
     from centroflye_tpu_torch.parallel.mesh import (
         make_mesh, make_placement_score_step)
@@ -83,7 +82,7 @@ def dryrun_multichip(n_devices: int,
     out = {"devices": [str(d) for d in mesh.devices]}
 
     # 1) the production recruitment engine, fused tier sharded
-    unit = read_seq(os.path.join(_DATA, "DXZ1_rc.fasta"))[:200]
+    unit = read_seq(os.path.join(DATA_DIR, "DXZ1_rc.fasta"))[:200]
     reads = [(f"r{i}", add_read_noise(rng, unit * 3, 0.08) if i % 2 == 0
               else gen_random_seq(rng, 1200)) for i in range(2 * n_devices)]
     eng = RecruitmentEngine(

@@ -9,8 +9,11 @@ min_record_len). The result is the same Decomposition structure our own
 unit decomposition stage produces, so every downstream stage runs unchanged
 on either source.
 
-Host code, a copy of the parser half of the JAX package's
-`stages/ncrf_compat.py` (`split_motif_alignment`, `parse_ncrf_report`).
+Host code, a copy of the JAX package's `stages/ncrf_compat.py`: the
+parser (`split_motif_alignment`, `parse_ncrf_report`), and the writer
+of a decomposition as an NCRF-like report (`write_ncrf_like_report`,
+its alignments from the port's `ops/align_path`) with its debug dump
+(`extract_motif_alignments`).
 """
 
 from __future__ import annotations
@@ -123,3 +126,84 @@ def parse_ncrf_report(report_fn: str,
     discarded = [r for r in dict.fromkeys(seen) if r not in records]
     return Decomposition(records=records, positions_all=positions_all,
                          read_lens=read_lens, discarded=discarded)
+
+
+def write_ncrf_like_report(dec: Decomposition, motif: str,
+                           out_fn: str) -> None:
+    """Write our decomposition in an NCRF-like 2-line record format.
+
+    Each unit instance contributes a TRUE gapped pairwise alignment of
+    its read segment against the motif (computed with ops/align_path, the
+    banded Myers PATH engine), so the motif side is exactly the motif's
+    bases with interleaved '-' runs — the shape the reference parser's
+    motif-regex splitting expects (reference ncrf_parser.py:28-59) — and
+    the split reproduces this decomposition's instance boundaries on
+    NOISY data too, enabling bit-for-bit parity runs of the reference's
+    downstream Python stages at real parameters. Segments that equal the
+    motif verbatim (noiseless data) skip the alignment.
+
+    Records are DE-canonicalized on write ('-' strand records emit the
+    reverse-complemented alignment and original-orientation coordinates) so
+    any NCRF parser — the reference's or ours — re-canonicalizes them back
+    to exactly this decomposition."""
+    from centroflye_tpu_torch.io.fasta import atomic_write
+    from centroflye_tpu_torch.ops.align_path import align_path
+
+    with atomic_write(out_fn) as f:
+        for r_id, rec in dec.records.items():
+            r_parts = []
+            m_parts = []
+            for i in range(rec.n_units):
+                st, en = int(rec.bounds[i]), int(rec.bounds[i + 1])
+                seg = rec.seq[st:en]
+                ln = en - st
+                # which motif span this instance should carry: full motif
+                # for interior instances; the tail/head for genuinely
+                # partial first/last instances
+                if ln == len(motif) and seg == motif:
+                    r_parts.append(seg)
+                    m_parts.append(motif)
+                    continue
+                if i == 0 and rec.n_units > 1 and ln < 0.8 * len(motif):
+                    ref_side = motif[-min(ln, len(motif)):]
+                elif i == rec.n_units - 1 and rec.n_units > 1 \
+                        and ln < 0.8 * len(motif):
+                    ref_side = motif[:min(ln, len(motif))]
+                elif ln > len(motif) * 1.5:
+                    # oversized instance (merged partials): repeat motif
+                    ref_side = (motif * (ln // len(motif) + 1))[:ln]
+                else:
+                    ref_side = motif
+                al = align_path(seg, ref_side, mode="NW")
+                r_parts.append(al.a1)
+                m_parts.append(al.a2)
+            r_al = "".join(r_parts)
+            m_al = "".join(m_parts)
+            r_st, r_en = rec.r_st, rec.r_en
+            if rec.strand == "-":
+                r_al = revcomp_str(r_al)
+                m_al = revcomp_str(m_al)
+                r_st, r_en = rec.r_len - rec.r_en, rec.r_len - rec.r_st
+            n_read_bases = sum(1 for ch in r_al if ch != "-")
+            print(f"{r_id} {rec.r_len} {n_read_bases}bp "
+                  f"{r_st}-{r_en} {r_al}", file=f)
+            print(f"{motif}{rec.strand} {len(m_al)}bp score=0 {m_al}",
+                  file=f)
+            print("", file=f)
+
+
+def extract_motif_alignments(dec: Decomposition, outdir: str,
+                             buffer: int = 20) -> None:
+    """Debug dump: per-read FASTA of unit-instance segments with `buffer`
+    flanking bases (role of the reference's misc/extract_ncrf_mas.py tool)."""
+    import os
+
+    os.makedirs(outdir, exist_ok=True)
+    for r_id, rec in dec.records.items():
+        out_fn = os.path.join(outdir, f"{r_id}.fasta")
+        with open(out_fn, "w") as f:
+            for i in range(rec.n_units):
+                st = max(0, int(rec.bounds[i]) - buffer)
+                en = min(len(rec.seq), int(rec.bounds[i + 1]) + buffer)
+                print(f">{r_id}|unit_{i}|{st}-{en}", file=f)
+                print(rec.seq[st:en], file=f)

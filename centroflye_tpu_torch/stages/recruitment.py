@@ -12,7 +12,15 @@ segments. Segments from many reads pack into dense (B, SEG) batches.
 
 `run()` has three tiers under `config.prefilter`:
 1. a host prescan (numpy, ops/seed_filter.host_prescan_hits) resolves
-   rows with no sampled seed hit before anything is uploaded;
+   rows with no sampled seed hit before anything is uploaded. Its rows
+   are filled by the native library (`native/seqio.cpp`): each segment
+   is encoded and 2-bit packed in one scan straight into the prescan
+   batch (`cf_encode_pack_row` from a string, `cf_pack2bit` from int8
+   codes), and a row with a non-ACGT base goes to the exact tier as it
+   is filled. With `native_fill=False` numpy encodes and packs instead,
+   and such rows go to the exact tier when the batch is prescanned. So
+   it does with `seg_len % 8 != 0`, where `pack_2bit` then asserts at
+   the first prescan, as in the JAX package;
 2. the fused device step (ops/fused_recruit) filters the candidate rows
    and scores the survivors with the two-strand Myers kernel;
 3. the exact tier, `distances()`, scores candidate overflow and rows with
@@ -72,7 +80,8 @@ class RecruitmentEngine:
 
     def __init__(self, unit: str, config: RecruitmentConfig | None = None,
                  seg_len: int = 32768, device="cuda", *,
-                 state: dict | None = None, mesh="auto"):
+                 state: dict | None = None, mesh="auto",
+                 native_fill: bool = True):
         """device: where the tables live and the device tiers run.
         state: tables from `convert.recruitment_state_from_numpy`, used in
         place of the tables built from `unit` (see `from_state`).
@@ -80,8 +89,11 @@ class RecruitmentEngine:
         than one (`parallel/mesh.auto_mesh`; on a CPU device, none); None
         runs on `device` alone; a `Mesh` pins the devices, its type
         `device`'s. A mesh of one device is none. The exact tier runs on
-        the mesh's first device."""
+        the mesh's first device. native_fill=False fills the prescan
+        batch with numpy instead of the native library; the per-read
+        results are the same."""
         self.config = config or RecruitmentConfig()
+        self.native_fill = native_fill
         self.unit = unit
         self.m = len(unit)
         self.device = torch.device(device)
@@ -187,11 +199,29 @@ class RecruitmentEngine:
 
         # prescan batch: rows are overwritten on enqueue and rows beyond
         # the fill level carry len 0, so the buffer recycles uncleared;
-        # the prescan is synchronous, so one buffer suffices
+        # the prescan is synchronous, so one buffer suffices. The native
+        # fill packs each segment row in place (f_packed); the numpy fill
+        # keeps int8 codes (f_codes) and packs them at the flush
+        native_fill = prefilter and self.native_fill and SEG % 8 == 0
+        SEGQ = SEG // 4
         f_lens = np.zeros((B_f,), dtype=np.int32)
         f_read: List[int] = []            # prescan-batch row -> read index
-        f_codes = (np.full((B_f, SEG), PAD, dtype=np.int8) if prefilter
-                   else None)
+        f_codes = (np.full((B_f, SEG), PAD, dtype=np.int8)
+                   if prefilter and not native_fill else None)
+        if native_fill:
+            from centroflye_tpu_torch.native import (get_encode_pack,
+                                                     get_pack2bit_row)
+            enc_pack = get_encode_pack()
+            pack_row = get_pack2bit_row()
+            f_packed = np.zeros((B_f, SEGQ), dtype=np.uint8)
+            f_base = f_packed.ctypes.data
+            # one-row scratch for int8 code input (the native reader's)
+            t_codes = np.empty((SEG,), np.int8)
+            t_len = np.empty((1,), np.int32)
+            t_mask = np.empty((SEG // 8,), np.uint8)
+            t_codes_ptr = t_codes.ctypes.data
+            t_len_ptr = t_len.ctypes.data
+            t_mask_ptr = t_mask.ctypes.data
 
         # candidate batch buffers: recycled only after their in-flight
         # bundle drains, since an asynchronous upload may still read them
@@ -251,14 +281,20 @@ class RecruitmentEngine:
             nonlocal f_read
             if not f_read:
                 return
-            from centroflye_tpu_torch.ops.fused_recruit import pack_2bit
             from centroflye_tpu_torch.ops.seed_filter import (
                 host_prescan_hits)
             rows = len(f_read)
-            f_lens[rows:] = 0            # stale recycled rows: ignore
-            packed, n_mask = pack_2bit(f_codes, f_lens)
-            packed = packed[:rows]
-            n_rows = n_mask.any(axis=1) if n_mask is not None else None
+            if native_fill:
+                # packed in place at the fill; N rows never entered
+                packed, n_rows = f_packed[:rows], None
+            else:
+                from centroflye_tpu_torch.ops.fused_recruit import (
+                    pack_2bit)
+                f_lens[rows:] = 0        # stale recycled rows: ignore
+                packed, n_mask = pack_2bit(f_codes, f_lens)
+                packed = packed[:rows]
+                n_rows = (n_mask.any(axis=1) if n_mask is not None
+                          else None)
             hits_a = host_prescan_hits(packed, f_lens[:rows],
                                        self._bitmap_le_host,
                                        k=self.config.seed_k)
@@ -384,12 +420,18 @@ class RecruitmentEngine:
             if read_idx - next_emit > LAG_LIMIT:
                 force_drain()
                 yield from emit_ready()
-            codes = seq if isinstance(seq, np.ndarray) else encode(seq)
-            n_len = len(codes)
+            if native_fill and not isinstance(seq, np.ndarray):
+                raw = seq.encode("ascii")    # rows pack from the ASCII
+                codes = None
+                n_len = len(raw)
+            else:
+                codes = seq if isinstance(seq, np.ndarray) else encode(seq)
+                n_len = len(codes)
             if self.seqpar_min and n_len >= self.seqpar_min:
                 pending[read_idx] = [r_id, 1, self.m, self.m]
                 order.append(read_idx)
-                long_batch.append((read_idx, np.asarray(codes, np.int8)))
+                c = codes if codes is not None else encode(seq)
+                long_batch.append((read_idx, np.asarray(c, np.int8)))
                 if len(long_batch) >= LB:
                     flush_seqpar()
                     yield from emit_ready()
@@ -400,7 +442,28 @@ class RecruitmentEngine:
             order.append(read_idx)
             for st in starts:
                 ln = min(SEG, n_len - st)
-                if prefilter:
+                if native_fill:
+                    row = len(f_read)
+                    if codes is None:
+                        flag = enc_pack(raw, st, ln, f_base + row * SEGQ,
+                                        SEGQ)
+                    else:
+                        t_codes[:ln] = codes[st:st + ln]
+                        t_len[0] = ln
+                        flag = pack_row(t_codes_ptr, 1, SEG, t_len_ptr,
+                                        f_base + row * SEGQ, t_mask_ptr)
+                    if flag:
+                        # a non-ACGT base in range: the exact tier
+                        enqueue_myers(encode(seq[st:st + ln])
+                                      if codes is None
+                                      else codes[st:st + ln], ln, read_idx)
+                    else:
+                        f_lens[row] = ln
+                        f_read.append(read_idx)
+                        if len(f_read) == B_f:
+                            flush_prescan()
+                            yield from emit_ready()
+                elif prefilter:
                     row = len(f_read)
                     f_codes[row, :ln] = codes[st:st + SEG]
                     f_codes[row, ln:] = PAD
@@ -431,10 +494,11 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
                  distributed: bool = False) -> int:
     """File-level entry point with the CLI contract of the reference rr binary
     (rr.cpp:43: unit.fasta reads.fasta[.gz] output.fasta threshold).
-    Recruited reads stream to `output_fn` in input order, each in the
-    form the JAX package's native reader gives it: its base codes
-    decoded, so upper case with every letter but ACGT written as N.
-    Returns their number. mesh: as `RecruitmentEngine`'s.
+    The reads stream through the native reader (`native_iter_seqs`) as
+    int8 base codes into the engine; recruited reads stream to
+    `output_fn` in input order as their codes decoded, so upper case with
+    every letter but ACGT written as N, as in the JAX package. Returns
+    their number. mesh: as `RecruitmentEngine`'s.
 
     distributed=True in a multi-process run (`parallel/distributed.
     init_distributed`) shards the read stream round robin over the
@@ -450,7 +514,8 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
             unit_fn, reads_fn, output_fn, threshold=threshold,
             batch_size=batch_size, seg_len=seg_len, device=device,
             mesh=mesh)
-    from centroflye_tpu_torch.io.fasta import atomic_write, iter_seqs, read_seq
+    from centroflye_tpu_torch.io.fasta import atomic_write, read_seq
+    from centroflye_tpu_torch.native import native_iter_seqs
 
     unit = read_seq(unit_fn)
     engine = RecruitmentEngine(
@@ -462,16 +527,16 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
     pending_seqs: collections.deque = collections.deque()
 
     def reads_iter():
-        for r_id, seq in iter_seqs(reads_fn):
-            pending_seqs.append(seq)
-            yield r_id, seq
+        for r_id, codes in native_iter_seqs(reads_fn):
+            pending_seqs.append(codes)
+            yield r_id, codes
 
     n_recruited = 0
     with atomic_write(output_fn) as out:
         for res in engine.run(reads_iter()):
-            seq = pending_seqs.popleft()
+            codes = pending_seqs.popleft()
             if res.recruited:
-                out.write(f">{res.r_id}\n{decode(encode(seq))}\n")
+                out.write(f">{res.r_id}\n{decode(codes)}\n")
                 n_recruited += 1
     return n_recruited
 
@@ -486,7 +551,8 @@ def _recruit_file_distributed(unit_fn: str, reads_fn: str, output_fn: str,
     count elsewhere."""
     import os
 
-    from centroflye_tpu_torch.io.fasta import iter_seqs, read_seq
+    from centroflye_tpu_torch.io.fasta import read_seq
+    from centroflye_tpu_torch.native import native_iter_seqs
     from centroflye_tpu_torch.parallel.distributed import (
         finish_partial, is_coordinator, merge_partial_fastas, partial_path,
         shard_read_stream)
@@ -495,20 +561,21 @@ def _recruit_file_distributed(unit_fn: str, reads_fn: str, output_fn: str,
     engine = RecruitmentEngine(
         unit, RecruitmentConfig(threshold=threshold, batch_size=batch_size),
         seg_len=seg_len, device=device, mesh=mesh)
-    pending: collections.deque = collections.deque()   # (ordinal, seq)
+    pending: collections.deque = collections.deque()   # (ordinal, codes)
 
     def reads_iter():
-        for ordinal, (r_id, seq) in shard_read_stream(iter_seqs(reads_fn)):
-            pending.append((ordinal, seq))
-            yield r_id, seq
+        for ordinal, (r_id, codes) in shard_read_stream(
+                native_iter_seqs(reads_fn)):
+            pending.append((ordinal, codes))
+            yield r_id, codes
 
     os.makedirs(os.path.dirname(os.path.abspath(output_fn)), exist_ok=True)
     n_local = 0
     with open(partial_path(output_fn), "w") as out:
         for res in engine.run(reads_iter()):
-            ordinal, seq = pending.popleft()
+            ordinal, codes = pending.popleft()
             if res.recruited:
-                out.write(f">{ordinal} {res.r_id}\n{decode(encode(seq))}\n")
+                out.write(f">{ordinal} {res.r_id}\n{decode(codes)}\n")
                 n_local += 1
     finish_partial(output_fn)
     if is_coordinator():

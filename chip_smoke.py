@@ -2,14 +2,16 @@
 NVIDIA GPU: builds the CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the main path's shapes (K1 two-strand, K2
 one-strand and K3 threshold-k banded HW Myers, K4 per-row-query Myers, K5
-a Myers column chunk from a carried state),
-then drives read
+a Myers column chunk from a carried state), then drives read
 recruitment (stage 1 of cenX) on the real DXZ1 unit and a rel2-matched
-read mix, its file CLI, and the Myers op library's HW entry points (K2,
-K3) on the exact tier's batches of that mix. K1 and K2 are one wavefront
-kernel in instances of G = 8 and 32 lanes per (row, strand): every
-instance is held against the plain version and timed at 128 x 10240
-(phases k1, k2) and at 2048 x 10240 (phase myers_ops, where the
+read mix (its prescan batch filled by the native library, then once
+more by numpy: every read's distances equal), its file CLI (the native
+reader, on FASTA and on gzipped FASTQ), and the Myers op library's HW
+entry points (K2, K3) on the exact tier's batches of that mix. K1 and
+K2 are one wavefront kernel in instances of G = 8 and 32 lanes per
+(row, strand): every instance is held against the plain version and
+timed at 128 x 10240 (phases k1, k2) and at 2048 x 10240 (phase
+myers_ops, where the
 wrapper's instance is held against the plain version on exact-tier
 batch 0), beside the instance the wrapper picks. K3 runs two passes (a
 prefix filter, then the survivors in column windows): it is also held
@@ -96,6 +98,7 @@ import ast
 import collections
 import contextlib
 import dataclasses
+import gzip
 import hashlib
 import json
 import logging
@@ -108,7 +111,7 @@ import time
 import numpy as np
 import torch
 
-from centroflye_tpu_torch import native
+from centroflye_tpu_torch import DATA_DIR, native
 from centroflye_tpu_torch.config import (COVERAGE, CentroFlyeConfig,
                                          ConsensusUnitConfig,
                                          KmerRecruitmentConfig, MonoConfig,
@@ -160,7 +163,7 @@ from centroflye_tpu_torch.stages.recruitment import (RecruitmentEngine,
                                                      segment_starts)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-UNIT_FASTA = os.path.join(HERE, "centroflye_tpu", "data", "DXZ1_rc.fasta")
+UNIT_FASTA = os.path.join(DATA_DIR, "DXZ1_rc.fasta")
 N_READS = 8192            # the read mix of bench.py
 CEN_FRACTION = 0.02
 THRESHOLD = 350
@@ -232,9 +235,8 @@ FRESH_NOISE = 0.02
 # monomer at one in CEN6_VARIANT_EVERY positions, reads of its ultra-long
 # mix at CEN6_COVERAGE x (a cut from rel3's 120x, for the run's time
 # limit) with CEN6_NOISE uniform noise (its part A), strands half and half
-D6Z1_FASTA = os.path.join(HERE, "centroflye_tpu", "data", "D6Z1.fasta")
-D6Z1_MONOMERS = os.path.join(HERE, "centroflye_tpu", "data",
-                             "D6Z1_monomers.fasta")
+D6Z1_FASTA = os.path.join(DATA_DIR, "D6Z1.fasta")
+D6Z1_MONOMERS = os.path.join(DATA_DIR, "D6Z1_monomers.fasta")
 CEN6_THRESHOLD = 550
 CEN6_SEED = 23
 CEN6_HORS = 800
@@ -256,6 +258,7 @@ K4_REPS = 50
 K4_WINDOWS = (32, 1024)
 K4_SAMPLE_EVERY = 16      # every 16th decomposer step timed on the device
 SPIN_CYCLES = 400_000     # a spin of about 0.2 ms queued ahead of a timing
+K4_SPIN_MAX = 64          # the sampled K4 launches' spin grows up to 12.8 ms
 # phase mesh: meshes that repeat the one card; K5's checked chunk; the
 # sequence-parallel tier's reads (LONG_READS of 100-400 kb, half tandem
 # DXZ1 at 10% noise, half random); the processes of the multi-process run
@@ -791,6 +794,72 @@ def phase_k3(unit_codes, dev, k1_ms, k2_ms, rate):
                 "passes_by_alpha": passes}}}
 
 
+def fill_seconds(reads, seg_len, overlap, batch, native_fill):
+    """Host seconds of the prescan batch's fill alone, as the engine does
+    it for string reads: native, each segment row encoded and 2-bit
+    packed in place (cf_encode_pack_row); numpy, each read encoded, its
+    segments copied into an int8 batch, a full batch packed
+    (pack_2bit)."""
+    segq = seg_len // 4
+    t = time.perf_counter()
+    if native_fill:
+        enc_pack = native.get_encode_pack()
+        rows = np.zeros((batch, segq), np.uint8)
+        base, row = rows.ctypes.data, 0
+        for _, seq in reads:
+            raw = seq.encode("ascii")
+            for st in segment_starts(len(raw), seg_len, overlap):
+                enc_pack(raw, st, min(seg_len, len(raw) - st),
+                         base + row * segq, segq)
+                row = (row + 1) % batch
+    else:
+        codes_b = np.full((batch, seg_len), 4, np.int8)
+        lens, row = np.zeros(batch, np.int32), 0
+        for _, seq in reads:
+            codes = encode(seq)
+            for st in segment_starts(len(codes), seg_len, overlap):
+                ln = min(seg_len, len(codes) - st)
+                codes_b[row, :ln] = codes[st:st + ln]
+                codes_b[row, ln:] = 4
+                lens[row] = ln
+                row += 1
+                if row == batch:
+                    fused_recruit.pack_2bit(codes_b, lens)
+                    row = 0
+        lens[row:] = 0
+        fused_recruit.pack_2bit(codes_b, lens)
+    return time.perf_counter() - t
+
+
+def hold_fills(unit, cfg, reads, results, dev, seg_len=SEG_LEN):
+    """main_path's mix through the engine's two fills, in turns (numpy,
+    numpy, native, after the counted native run): every read's
+    (dist_fwd, dist_rc) under the numpy fill (native_fill=False) must
+    equal the native fill's `results`. Returns each run's seconds and
+    each fill's host seconds alone (`fill_seconds`)."""
+    want = [(r.r_id, r.dist_fwd, r.dist_rc) for r in results]
+    engines = {f: RecruitmentEngine(unit, cfg, seg_len=seg_len, device=dev,
+                                    native_fill=f) for f in (False, True)}
+    for eng in engines.values():
+        list(eng.run(reads[:272]))                # warm-up
+    runs = {False: [], True: []}
+    for native_fill in (False, False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = list(engines[native_fill].run(reads))
+        torch.cuda.synchronize()
+        runs[native_fill].append(time.perf_counter() - t)
+        got = [(r.r_id, r.dist_fwd, r.dist_rc) for r in got]
+        bad = [a for a, b in zip(got, want) if a != b]
+        check(got == want, f"the {'native' if native_fill else 'numpy'} "
+              f"fill differs from the native fill's run on {len(bad)} "
+              f"reads: {bad[:5]}")
+    eng = engines[True]
+    fills = {f: [fill_seconds(reads, eng.seg_len, eng.overlap, eng.batch,
+                              f) for _ in range(2)] for f in (False, True)}
+    return runs, fills
+
+
 def phase_main_path(unit, dev):
     t0 = time.perf_counter()
     reads, cen = make_reads(unit)
@@ -807,6 +876,8 @@ def phase_main_path(unit, dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_run
     launches = myers_hw_2strand.launches
+    runs, fills = hold_fills(unit, cfg, reads, results, dev)
+    runs[True].insert(0, dt)
 
     check(launches > 0, "the main path launched K1 no time")
     check([r.r_id for r in results] == [r for r, _ in reads],
@@ -844,6 +915,11 @@ def phase_main_path(unit, dev):
           "exact_tier_reads": len(reads), "exact_tier_equal": True,
           "reads_per_s": len(reads) / dt, "mbp_per_s": total_bp / dt / 1e6,
           "run_seconds": dt, "k1_launches": launches,
+          "fills_equal": True,
+          "fills": {("native" if f else "numpy"): {
+              "run_seconds": runs[f],
+              "reads_per_s": [len(reads) / x for x in runs[f]],
+              "fill_host_seconds": fills[f]} for f in (True, False)},
           "make_reads_seconds": t_make, "exact_tier_seconds": exact_s,
           "seconds": time.perf_counter() - t0})
     return reads, recruited, launches, batches, exact.overlap, distances
@@ -981,24 +1057,70 @@ def phase_myers_ops(unit, reads, recruited, batches, overlap, dev, rate):
     return launches, instances
 
 
+IUPAC = "RYKMSWBDHVNrykmswbdhvn"
+
+
+def odd_reads(reads, seed=5):
+    """Every other read, from the first, with a 25-base lowercase stretch
+    and four IUPAC letters. Returns the reads and, by id, the form the
+    native reader gives each (upper case, every letter but ACGT an N)."""
+    rng = np.random.default_rng(seed)
+    out, native_form = [], {}
+    for i, (r_id, seq) in enumerate(reads):
+        if i % 2 == 0 and len(seq) > 40:
+            a = int(rng.integers(0, len(seq) - 30))
+            seq = seq[:a] + seq[a:a + 25].lower() + seq[a + 25:]
+            b = int(rng.integers(0, len(seq) - 5))
+            seq = seq[:b] + "".join(rng.choice(list(IUPAC), 4)) + seq[b + 4:]
+        out.append((r_id, seq))
+        native_form[r_id] = decode(encode(seq))
+    return out, native_form
+
+
 def phase_cli(reads, recruited, dev):
+    """recruit_file on main_path's first CLI_READS reads, as FASTA: the
+    reads main_path recruited, in order; then the same reads as gzipped
+    FASTQ with descriptions, lowercase stretches and IUPAC letters
+    (`odd_reads`): the FASTA run's file with those reads in the native
+    reader's form (IUPAC letters as N)."""
     t0 = time.perf_counter()
     sub = reads[:CLI_READS]
     want = [(r_id, seq) for r_id, seq in sub if r_id in recruited]
     check(want, "the CLI slice holds no recruited read")
+    odd, native_form = odd_reads(sub)
     with tempfile.TemporaryDirectory() as tmp:
         reads_fn = os.path.join(tmp, "reads.fasta")
+        fastq_fn = os.path.join(tmp, "reads.fastq.gz")
         out_fn = os.path.join(tmp, "recruited.fasta")
+        out_q = os.path.join(tmp, "recruited_fastq.fasta")
         with open(reads_fn, "w") as f:
             for r_id, seq in sub:
                 f.write(f">{r_id}\n{seq}\n")
+        with gzip.open(fastq_fn, "wt") as f:
+            for r_id, seq in odd:
+                f.write(f"@{r_id} run=1 ch=7\n{seq}\n+\n{'5' * len(seq)}\n")
+        t = time.perf_counter()
         n = recruit_file(UNIT_FASTA, reads_fn, out_fn, THRESHOLD,
                          batch_size=BATCH_SIZE, seg_len=SEG_LEN,
                          device=dev)
+        fasta_s = time.perf_counter() - t
+        t = time.perf_counter()
+        n_q = recruit_file(UNIT_FASTA, fastq_fn, out_q, THRESHOLD,
+                           batch_size=BATCH_SIZE, seg_len=SEG_LEN,
+                           device=dev)
+        fastq_s = time.perf_counter() - t
         got = list(iter_seqs(out_fn))
+        got_q = list(iter_seqs(out_q))
     check(n == len(want) and got == want,
           f"CLI output {[r for r, _ in got]} != {[r for r, _ in want]}")
+    odd_kept = [r for r, s in got if native_form[r] != s]
+    check(n_q == n and got_q == [(r, native_form[r]) for r, _ in got],
+          f"the FASTQ.gz run's file differs from the FASTA run's: "
+          f"{[r for r, _ in got_q]} against {[r for r, _ in got]}")
+    check(odd_kept, "no recruited read holds an IUPAC letter")
     emit({"phase": "cli", "reads": len(sub), "recruited": n,
+          "fastq_gz_equal": True, "recruited_with_iupac": len(odd_kept),
+          "fasta_seconds": fasta_s, "fastq_gz_seconds": fastq_s,
           "seconds": time.perf_counter() - t0})
 
 
@@ -2377,8 +2499,10 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     pipe = MonoPipeline(MonoConfig(), outdir, device=dev)
     # every K4_SAMPLE_EVERY-th step's K4 launch, queued behind a spin so
     # that its events time the device's work alone; each launch's windows
-    # and call
+    # and call. A sample the host did not queue ahead of the device grows
+    # the spin fourfold for the later ones, up to K4_SPIN_MAX times.
     events, queued, calls, steps = [], [], [0], []
+    spin = [SPIN_CYCLES]
     perrow = parallel_mesh.myers_perrow
 
     def timed_perrow(queries, windows, *args, **kwargs):
@@ -2387,12 +2511,14 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
         if calls[0] % K4_SAMPLE_EVERY:
             return perrow(queries, windows, *args, **kwargs)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin[0])
         e0.record()
         out = perrow(queries, windows, *args, **kwargs)
         queued.append(not e0.query())
         e1.record()
         events.append((e0, e1))
+        if not queued[-1]:
+            spin[0] = min(4 * spin[0], K4_SPIN_MAX * SPIN_CYCLES)
         return out
     parallel_mesh.myers_perrow = timed_perrow
     t = time.perf_counter()
@@ -2450,6 +2576,7 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
            "k4_windows_max": max((w for w, _ in steps), default=None),
            "k4_sampled_steps": len(events),
            "k4_sampled_queued": len(k4_ms),
+           "k4_spin_cycles": spin[0],
            "k4_ms_mean": float(np.mean(k4_ms)) if k4_ms else None,
            "k4_ms_max": max(k4_ms, default=None),
            "k4_ms_total_estimate": float(np.mean(k4_ms)) * launches["k4"]

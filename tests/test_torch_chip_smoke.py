@@ -1,7 +1,8 @@
 """chip_smoke.py on the CPU: its read mix is bench.py's, bit for bit;
 without a CUDA card it fails and prints no result; its stage-2-4 world
 keeps its records when the boundary reads join it; and the host parts of
-its decomposition and placement phases hold at a small size."""
+its decomposition and placement phases, main_path's check of the two
+fills and phase cli (FASTA and gzipped FASTQ) hold at a small size."""
 
 import hashlib
 import json
@@ -173,6 +174,82 @@ def test_hold_fused_k1_takes_a_mixed_full_batch(monkeypatch):
     assert fields["sum_lens"] == int(captured[2][3].sum())
     assert 0 < fields["rows_in_band"] < B
     assert fields["batches_captured"] == 3
+
+
+def _small_mix(seed=6, n=24):
+    """A 150-bp unit and a mix of tandem reads (10% noise, both strands)
+    and background reads of 300-2,500 bases."""
+    from centroflye_tpu_torch.io.encoding import revcomp_str
+    from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
+                                                        gen_random_seq)
+    rng = np.random.default_rng(seed)
+    unit = gen_random_seq(rng, 150)
+    reads = []
+    for i in range(n):
+        L = int(rng.integers(300, 2500))
+        if i % 4 == 0:
+            src = unit if i % 8 else revcomp_str(unit)
+            seq = add_read_noise(rng, src * (L // 150 + 1), 0.10)[:L]
+        else:
+            seq = gen_random_seq(rng, L)
+        reads.append((f"r{i:05d}", seq))
+    return unit, reads
+
+
+def _small_config(threshold=40):
+    from centroflye_tpu_torch.config import RecruitmentConfig
+    return RecruitmentConfig(threshold=threshold, batch_size=16)
+
+
+def test_hold_fills_on_the_cpu(monkeypatch):
+    """main_path's fill check on CPU tensors: the numpy-fill runs and the
+    second native run equal the counted native run read by read; a
+    changed distance fails it; both fills' host seconds are measured."""
+    import torch
+
+    import chip_smoke as cs
+    from centroflye_tpu_torch.stages.recruitment import RecruitmentEngine
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    unit, reads = _small_mix()
+    cfg = _small_config()
+    results = list(RecruitmentEngine(unit, cfg, seg_len=512,
+                                     device="cpu").run(reads))
+    assert 0 < sum(r.recruited for r in results) < len(reads)
+    runs, fills = cs.hold_fills(unit, cfg, reads, results, "cpu",
+                                seg_len=512)
+    assert [len(runs[f]) for f in (False, True)] == [2, 1]
+    assert all(len(v) == 2 and min(v) > 0 for v in fills.values())
+    results[5].dist_rc += 1
+    with pytest.raises(SystemExit, match="numpy fill differs"):
+        cs.hold_fills(unit, cfg, reads, results, "cpu", seg_len=512)
+
+
+def test_cli_phase_holds_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phase cli at a small size on the CPU: recruit_file on the FASTA
+    writes the reads recruited in memory, and on the same reads as
+    gzipped FASTQ with descriptions, lowercase stretches and IUPAC
+    letters the FASTA run's file in the native reader's form; a
+    recruited set that is not the engine's fails it."""
+    import chip_smoke as cs
+    from centroflye_tpu_torch.io.fasta import write_seqs
+    from centroflye_tpu_torch.stages.recruitment import RecruitmentEngine
+    unit, reads = _small_mix(seed=8, n=40)
+    unit_fn = str(tmp_path / "unit.fasta")
+    write_seqs(unit_fn, {"unit": unit})
+    for name, value in (("UNIT_FASTA", unit_fn), ("THRESHOLD", 40),
+                        ("BATCH_SIZE", 16), ("SEG_LEN", 512),
+                        ("CLI_READS", 30)):
+        monkeypatch.setattr(cs, name, value)
+    recruited = {r.r_id for r in RecruitmentEngine(
+        unit, _small_config(), seg_len=512, device="cpu").run(reads)
+        if r.recruited}
+    cs.phase_cli(reads, recruited, "cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "cli" and line["fastq_gz_equal"]
+    assert line["recruited"] == len({r for r, _ in reads[:30]} & recruited)
+    assert line["recruited_with_iupac"] > 0
+    with pytest.raises(SystemExit, match="CLI output"):
+        cs.phase_cli(reads, recruited | {"r00001"}, "cpu")
 
 
 @pytest.mark.parametrize("m", [40, 90])

@@ -207,6 +207,51 @@ def test_parse_ncrf_report_equal(unit, noisy_world, tmp_path):
         set(dec.records)
 
 
+def _dir_files(root):
+    out = {}
+    for n in sorted(os.listdir(root)):
+        with open(os.path.join(root, n), "rb") as f:
+            out[n] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("world", ["clean", "noisy"])
+def test_write_ncrf_like_report_round_trip(unit, noisy_world, rng, tmp_path,
+                                           world):
+    """The port writes the JAX package's NCRF-like report and debug dump
+    byte for byte, and the report parses back to the decomposition's
+    records (tests/test_tools_and_compat.py's round trip: the clean
+    case is its read)."""
+    if world == "clean":
+        u = gen_random_seq(rng, 200)
+        reads = [("r0", gen_random_seq(rng, 500) + u * 30
+                  + gen_random_seq(rng, 500))]
+    else:
+        u, reads = unit, noisy_world
+    dec = decompose_both(u, reads)
+    jdec = jud.UnitDecomposer(u, jconfig.UnitDecompositionConfig(
+        min_record_len=1000)).decompose(reads)
+    tncrf.write_ncrf_like_report(dec, u, str(tmp_path / "port.ncrf"))
+    jncrf.write_ncrf_like_report(jdec, u, str(tmp_path / "jax.ncrf"))
+    with open(tmp_path / "port.ncrf", "rb") as a, \
+            open(tmp_path / "jax.ncrf", "rb") as b:
+        assert a.read() == b.read()
+    parsed = tncrf.parse_ncrf_report(str(tmp_path / "port.ncrf"),
+                                     min_record_len=1000)
+    assert set(parsed.records) == set(dec.records)
+    for r_id, rec in dec.records.items():
+        out = parsed.records[r_id]
+        assert (out.r_st, out.r_en, out.seq, out.strand) == \
+            (rec.r_st, rec.r_en, rec.seq, rec.strand)
+    if world == "clean":
+        assert parsed.records["r0"].strand == "+"
+    tncrf.extract_motif_alignments(dec, str(tmp_path / "port_mas"), 15)
+    jncrf.extract_motif_alignments(jdec, str(tmp_path / "jax_mas"), 15)
+    files = _dir_files(str(tmp_path / "port_mas"))
+    assert files == _dir_files(str(tmp_path / "jax_mas"))
+    assert set(files) == {f"{r}.fasta" for r in dec.records}
+
+
 @pytest.mark.parametrize("pinned", [False, True])
 def test_run_decomposition_artifact_equal(unit, noisy_world, tmp_path,
                                           pinned):

@@ -1,5 +1,6 @@
-"""The port's native Myers library (`centroflye_tpu_torch/native`) against
-the JAX package's: the same source, and each of the six wrappers equal
+"""The port's native library (`centroflye_tpu_torch/native`) against
+the JAX package's: the same sources, built with zlib linked after them,
+and each of the six alignment wrappers equal
 on numpy-seeded inputs (NW, SHW and HW distances with and without the
 banded early-out, the batch, alignment paths, HW locate, path batches
 and pairs). Both libraries are built first, and the tests assert that
@@ -39,23 +40,38 @@ def _pair(rng, m, n, noise=None):
 
 
 def test_sources_are_the_jax_packages():
+    """The port's library is built from the JAX package's native
+    sources, byte for byte: the Myers engine, the reader and packers, and
+    their header."""
     jdir = os.path.dirname(jnative.__file__)
     tdir = os.path.dirname(tnative.__file__)
-    with open(os.path.join(jdir, "myers.cpp"), "rb") as f:
-        want = f.read()
-    with open(os.path.join(tdir, "myers.cpp"), "rb") as f:
-        assert f.read() == want
+    assert set(tnative.SOURCES) == {"myers.cpp", "seqio.cpp", "cfnative.h"}
+    for name in tnative.SOURCES:
+        with open(os.path.join(jdir, name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(tdir, name), "rb") as f:
+            assert f.read() == want, name
 
-    def alignment_api(name):
-        """The header's alignment declarations: the port's header holds
-        only these."""
-        with open(name) as f:
-            text = f.read()
-        text = text[text.index("/* ---- alignment"):]
-        return text.split("/* ---- streaming")[0].split(
-            "#ifdef __cplusplus\n}")[0]
-    assert alignment_api(os.path.join(tdir, "cfnative.h")) == \
-        alignment_api(os.path.join(jdir, "cfnative.h"))
+
+def test_build_links_zlib_after_the_sources(monkeypatch, tmp_path):
+    """g++ gets both sources, and -lz after them: a linker that drops
+    unused libraries (--as-needed) would drop a -lz named before the
+    objects that use it, and the library would not load."""
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path))
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return tnative.subprocess.CompletedProcess(cmd, 1, "", "stop")
+    monkeypatch.setattr(tnative.subprocess, "run", run)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tnative.build()
+    cmd = seen[0]
+    srcs = [i for i, a in enumerate(cmd) if a.endswith(".cpp")]
+    assert [os.path.basename(cmd[i]) for i in srcs] == ["myers.cpp",
+                                                         "seqio.cpp"]
+    assert cmd.index("-lz") > max(srcs)
+    assert "-march=native" not in cmd
 
 
 @pytest.mark.parametrize("mode", MODES)

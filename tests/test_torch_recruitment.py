@@ -1,7 +1,10 @@
 """Stage 1 of cenX on the port: per-read recruitment results of the port
 engine equal the JAX engine's on one stream, with the prefilter on and
-off; `recruit_file` writes the same bytes; the JAX engine's tables carry
-across; and the port runs with jax unimportable."""
+off; the native fill and the numpy fill give the same results, from
+strings and from code arrays, at seg_len 1024 and 1028, on a CPU mesh
+and with the sequence-parallel tier; `recruit_file` (the native reader)
+writes the same bytes; the JAX engine's tables carry across; and the
+port runs with jax unimportable."""
 
 import os
 import subprocess
@@ -189,6 +192,117 @@ def test_recruit_file_writes_the_jax_native_form(tmp_path, fmt):
     assert n_t == n_j > 10
     assert any(f">{r}\n" in jtext for r in odd)
     assert ttext == jtext
+
+
+def _fill_routes(unit, reads, seg_len, prefilter, monkeypatch, mesh="auto",
+                 **kw):
+    """Per-read results of the port engine with the native fill and with
+    the numpy fill, and each run's number of numpy pack_2bit calls."""
+    from centroflye_tpu_torch.ops import fused_recruit as tfused
+    calls = []
+    pack = tfused.pack_2bit
+
+    def spy(*a, **k):
+        calls.append(1)
+        return pack(*a, **k)
+    monkeypatch.setattr(tfused, "pack_2bit", spy)
+    out = {}
+    for native_fill in (True, False):
+        del calls[:]
+        eng = trec.RecruitmentEngine(
+            unit, RecruitmentConfig(threshold=THRESHOLD, batch_size=16,
+                                    prefilter=prefilter, **kw),
+            seg_len=seg_len, device="cpu", mesh=mesh,
+            native_fill=native_fill)
+        out[native_fill] = (_tuples(eng.run(reads)), len(calls))
+    return out
+
+
+@pytest.mark.parametrize("seg_len", [1024, 1028])
+@pytest.mark.parametrize("prefilter", [True, False])
+@pytest.mark.parametrize("as_codes", [False, True])
+def test_native_and_numpy_fills_equal_jax(seg_len, prefilter, as_codes,
+                                          monkeypatch):
+    """The native fill (rows packed in place from the ASCII read or from
+    int8 codes, N rows to the exact tier as they are filled) and the
+    numpy fill give every read the JAX engine's (dist_fwd, dist_rc); the
+    native fill runs only with the prefilter and seg_len % 8 == 0. With
+    the prefilter and seg_len % 8 != 0 the JAX engine's numpy pack
+    asserts at the first prescan, and so does the port's (a fault of the
+    reference, kept)."""
+    from centroflye_tpu.io.encoding import encode as jencode
+    unit, reads = _stream(seed=31, n_short_tandem=40)
+    if as_codes:
+        reads = [(r, jencode(s)) for r, s in reads]
+    jeng = jrec.RecruitmentEngine(
+        unit, JConfig(threshold=THRESHOLD, batch_size=16,
+                      prefilter=prefilter),
+        seg_len=seg_len, use_pallas=False, mesh=None)
+    if prefilter and seg_len % 8:
+        with pytest.raises(AssertionError):
+            list(jeng.run(reads))
+        with pytest.raises(AssertionError):
+            _fill_routes(unit, reads, seg_len, prefilter, monkeypatch)
+        return
+    want = _tuples(jeng.run(reads))
+    out = _fill_routes(unit, reads, seg_len, prefilter, monkeypatch)
+    assert out[True][0] == out[False][0] == want
+    assert sum(r[3] for r in want) > 20
+    assert out[True][1] == 0                    # no numpy pack
+    assert (out[False][1] > 0) == prefilter
+
+
+def _long_stream(seed=41):
+    """Reads of 2,200-4,000 bases for the sequence-parallel tier (tandem
+    on both strands, background, one with N) among short ones."""
+    unit, reads = _stream(seed=seed, n_short_tandem=10)
+    rng = np.random.default_rng(seed)
+    rc = revcomp_str(unit)
+    longs = [
+        ("long_cen", gen_random_seq(rng, 1500) + add_read_noise(
+            rng, unit * 3, 0.05) + gen_random_seq(rng, 1000)),
+        ("long_rc", add_read_noise(rng, rc * 16, 0.05)),
+        ("long_bg", gen_random_seq(rng, 3000)),
+        ("long_n", gen_random_seq(rng, 2000) + "NNNN" + unit
+         + gen_random_seq(rng, 300)),
+    ]
+    return unit, longs[:2] + reads[:12] + longs[2:] + reads[12:]
+
+
+@pytest.mark.parametrize("n,min_len", [(2, 0), (4, 0), (2, 2000)])
+def test_fills_equal_under_a_mesh_and_the_seqpar_tier(n, min_len,
+                                                      monkeypatch):
+    """On a CPU mesh, with the prefilter: the sharded fused tier
+    (min_len 0: seq-par off), or with it the sequence-parallel tier
+    (reads of at least 2,000 bases, encoded for the tier from the
+    string): the native and numpy fills equal the JAX engine on its
+    mesh."""
+    from centroflye_tpu.parallel import mesh as jmesh
+    from centroflye_tpu_torch.parallel import mesh as tmesh
+    unit, reads = _long_stream()
+    kw = dict(threshold=THRESHOLD, batch_size=16,
+              seq_parallel_min_len=min_len)
+    want = _tuples(jrec.RecruitmentEngine(
+        unit, JConfig(**kw), seg_len=SEG_LEN, use_pallas=False,
+        mesh=jmesh.make_mesh(n)).run(reads))
+    out = _fill_routes(unit, reads, SEG_LEN, True, monkeypatch,
+                       seq_parallel_min_len=min_len,
+                       mesh=tmesh.make_mesh(n, devices=["cpu"] * n))
+    assert out[True][0] == out[False][0] == want
+    assert out[True][1] == 0 < out[False][1]
+    by_id = {r[0]: r[3] for r in want}
+    assert by_id["long_cen"] and by_id["long_rc"] and by_id["long_n"]
+    assert not by_id["long_bg"]
+
+
+def test_non_ascii_read_raises_as_in_jax():
+    unit, reads = _stream(seed=2, n_short_tandem=0)
+    reads = reads[:3] + [("bad", "ACGT\u00e9ACGT")]
+    with pytest.raises(UnicodeEncodeError):
+        list(_jax_engine(unit, True, 16).run(reads))
+    with pytest.raises(UnicodeEncodeError):
+        list(trec.RecruitmentEngine(unit, _config(True, 16),
+                                    seg_len=SEG_LEN, device="cpu").run(reads))
 
 
 @pytest.mark.parametrize("prefilter", [True, False])
