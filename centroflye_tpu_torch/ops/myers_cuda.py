@@ -10,10 +10,11 @@
 | `myers_carry` (K5) | `csrc/myers_carry.cu` | `parallel/seq_parallel.py`'s chunk_scan (a `jnp` scan, no Pallas kernel) |
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
-in its `launches` attribute. The two-strand and one-strand wrappers run
-one kernel template in instances of G = 8 or 32 lanes per
-(row, strand): `pick_group` chooses G from the batch, and the keyword
-`group` forces one. For CPU tensors it runs its plain PyTorch
+in its `launches` attribute, and by card in `launches_by_device` (card
+index -> launches); `reset_launches` zeroes both. The two-strand and
+one-strand wrappers run one kernel template in instances of G = 8 or 32
+lanes per (row, strand): `pick_group` chooses G from the batch, and the
+keyword `group` forces one. For CPU tensors it runs its plain PyTorch
 version (`*_plain`, built on `ops/myers.myers_distance_batch`), which is
 also what the kernel is compared with on the card. Nothing falls back: on
 a CUDA tensor a wrapper launches its kernel or raises.
@@ -283,6 +284,20 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _count(wrapper, dev: torch.device):
+    """One launch of `wrapper`'s kernel on card `dev`."""
+    wrapper.launches += 1
+    wrapper.launches_by_device[dev.index] = \
+        wrapper.launches_by_device.get(dev.index, 0) + 1
+
+
+def reset_launches(*wrappers):
+    """Zero the launch counts of `wrappers` (default: every wrapper)."""
+    for w in wrappers or WRAPPERS:
+        w.launches = 0
+        w.launches_by_device = {}
+
+
 def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int, group=None):
     """HW edit distance of the unit (peq_f) and of its reverse complement
     (peq_r) against each text column of text_t, plus the first column
@@ -310,12 +325,13 @@ def myers_hw_2strand(peq_f, peq_r, text_t, lens, *, m: int, group=None):
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), m, W, L, B, G, stream)
     _raise_on(rc, "cf_myers_hw_2strand")
-    myers_hw_2strand.launches += 1
+    _count(myers_hw_2strand, dev)
     return {"dist_f": out[0], "end_f": out[1],
             "dist_r": out[2], "end_r": out[3]}
 
 
 myers_hw_2strand.launches = 0
+myers_hw_2strand.launches_by_device = {}
 
 
 def myers_hw_v3(peq, text_t, lens, *, m: int, group=None):
@@ -336,11 +352,12 @@ def myers_hw_v3(peq, text_t, lens, *, m: int, group=None):
             pq.data_ptr(), text_t.data_ptr(), lens.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), m, W, L, B, G, stream)
     _raise_on(rc, "cf_myers_hw_1strand")
-    myers_hw_v3.launches += 1
+    _count(myers_hw_v3, dev)
     return {"dist": out[0], "end": out[1]}
 
 
 myers_hw_v3.launches = 0
+myers_hw_v3.launches_by_device = {}
 
 
 class BandedRun:
@@ -420,11 +437,12 @@ def myers_hw_v3_banded(peq, text_t, lens, *, m: int, k: int,
                     window=window)
     run.pass1()
     run.pass2()
-    myers_hw_v3_banded.launches += 1
+    _count(myers_hw_v3_banded, text_t.device)
     return run.result()
 
 
 myers_hw_v3_banded.launches = 0
+myers_hw_v3_banded.launches_by_device = {}
 
 
 def recruit_distances(peq_fwd, peq_rc, codes, lens, *, m: int):
@@ -562,13 +580,14 @@ def myers_perrow(queries: PerrowQueries, windows, wlens, *, mode="SHW",
             windows.data_ptr(), wlens.data_ptr(), *ptrs, Q, R, L, W,
             MODES[mode], int(collect == "all"), stream)
     _raise_on(rc, "cf_myers_perrow")
-    myers_perrow.launches += 1
+    _count(myers_perrow, dev)
     if collect == "all":
         return {"scores": scores}
     return {"q": call[0], "dist": call[1], "end": call[2]}
 
 
 myers_perrow.launches = 0
+myers_perrow.launches_by_device = {}
 
 
 CARRY_MODES = {"HW": 0, "SHW": 1, "NW": 1}    # 1: a 1 shifted into hp
@@ -623,8 +642,13 @@ def myers_carry(peq, text, lens, state: CarryState, c0: int, *, m: int,
             vp.data_ptr(), vn.data_ptr(), sc.data_ptr(), m, W, C, B,
             max(text.stride(0), C), c0, CARRY_MODES[mode], group, stream)
     _raise_on(rc, "cf_myers_carry")
-    myers_carry.launches += 1
+    _count(myers_carry, dev)
     return CarryState(vp, vn, sc[0], sc[1], sc[2], sc[3])
 
 
 myers_carry.launches = 0
+myers_carry.launches_by_device = {}
+
+
+WRAPPERS = (myers_hw_2strand, myers_hw_v3, myers_hw_v3_banded, myers_perrow,
+            myers_carry)

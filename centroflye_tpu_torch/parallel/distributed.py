@@ -13,7 +13,13 @@ by data parallelism over reads. In a multi-process run:
   with the reads' global ordinals, marks it done, and process 0
   (`is_coordinator`) merges the parts in global input order
   (`merge_partial_fastas`), so the merged file is byte for byte the
-  single-process one.
+  single-process one;
+- each process works on one card of its host, `local_device()`:
+  cuda:(LOCAL_RANK % cards), LOCAL_RANK from the environment (torchrun
+  sets it) or else the rank. `init_distributed` makes it the process's
+  current card, and `parallel/mesh` resolves "cuda" and mesh="auto" to it
+  alone: as in the JAX package, a host's processes split its reads, not
+  each other's cards.
 
 Without a process group everything is the single process's.
 """
@@ -24,6 +30,7 @@ import os
 import time
 from typing import Iterable, Iterator, List, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 
 
@@ -47,7 +54,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     "tcp://localhost:29500" or "file:///shared/dir/store" (then
     num_processes and process_id are needed too). Without it, the group
     is read from the environment (MASTER_ADDR, MASTER_PORT, RANK,
-    WORLD_SIZE) when MASTER_ADDR is set; otherwise nothing is joined."""
+    WORLD_SIZE) when MASTER_ADDR is set; otherwise nothing is joined.
+    In a group of more than one process, with CUDA present, the process's
+    current card becomes `local_device()`."""
     if not _active():
         if coordinator_address is not None:
             if num_processes is None or process_id is None:
@@ -58,7 +67,22 @@ def init_distributed(coordinator_address: Optional[str] = None,
                                     rank=process_id)
         elif "MASTER_ADDR" in os.environ:
             dist.init_process_group("gloo", init_method="env://")
+    if process_count() > 1 and torch.cuda.is_available():
+        torch.cuda.set_device(local_device())
     return process_count() > 1
+
+
+def local_device() -> torch.device:
+    """The card this process works on: cuda:(local rank % the host's
+    cards), the local rank LOCAL_RANK from the environment when set, else
+    the group rank. Processes beyond the card count share cards round
+    robin. Raises without CUDA."""
+    n = torch.cuda.device_count()
+    if n < 1:
+        raise RuntimeError("local_device: no CUDA device")
+    local = os.environ.get("LOCAL_RANK")
+    return torch.device("cuda", (int(local) if local is not None
+                                 else process_index()) % n)
 
 
 def is_coordinator() -> bool:

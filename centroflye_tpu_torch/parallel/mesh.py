@@ -33,14 +33,18 @@ import torch
 
 from centroflye_tpu_torch.ops.kmers import merge_count_tables
 from centroflye_tpu_torch.ops.myers_cuda import myers_perrow, perrow_queries
+from centroflye_tpu_torch.parallel import distributed
 
 DATA_AXIS = "reads"
 
 
 def _device(d) -> torch.device:
+    """"cuda" without an index: the process's card in a multi-process run
+    (`parallel/distributed.local_device`), else the current card."""
     d = torch.device(d)
     if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
+        d = (distributed.local_device() if distributed.process_count() > 1
+             else torch.device("cuda", torch.cuda.current_device()))
     return d
 
 
@@ -99,8 +103,11 @@ def make_mesh(n_devices: int = 0, axis: str = DATA_AXIS,
 def auto_mesh(min_devices: int = 2) -> Optional[Mesh]:
     """A mesh over every local CUDA device when there are at least
     `min_devices`, else None: the pipelines' switch between single-device
-    and sharded steps. With one card it is None."""
-    if torch.cuda.device_count() < min_devices:
+    and sharded steps. With one card it is None, and in a multi-process
+    run too: there each process works on its own card
+    (`parallel/distributed.local_device`) and shards nothing."""
+    if (distributed.process_count() > 1
+            or torch.cuda.device_count() < min_devices):
         return None
     return make_mesh()
 
@@ -108,7 +115,8 @@ def auto_mesh(min_devices: int = 2) -> Optional[Mesh]:
 def resolve_mesh(mesh, device) -> Optional[Mesh]:
     """A constructor's `mesh` argument -> a `Mesh` of more than one
     device, or None: "auto" is `auto_mesh()` for a CUDA
-    device and None for the CPU; a mesh must hold `device`'s type."""
+    device (None in a multi-process run) and None for the CPU; a mesh
+    must hold `device`'s type."""
     device = torch.device(device)
     if isinstance(mesh, str):
         if mesh != "auto":

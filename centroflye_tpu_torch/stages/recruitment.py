@@ -545,18 +545,22 @@ def _recruit_file_distributed(unit_fn: str, reads_fn: str, output_fn: str,
                               *, threshold: int, batch_size: int,
                               seg_len: int, device, mesh) -> int:
     """`recruit_file`'s multi-process body: every process streams the
-    shared input, keeps its round-robin share, recruits it and writes
-    `output_fn.part{p}` with global ordinals in the headers; process 0
-    merges. Returns the global recruited count on process 0, the local
-    count elsewhere."""
+    shared input, keeps its round-robin share, recruits it on its own
+    card (`parallel/distributed.local_device`, for a "cuda" device with
+    no index; mesh="auto" is none there) and writes `output_fn.part{p}`
+    with global ordinals in the headers; process 0 merges. Returns the
+    global recruited count on process 0, the local count elsewhere."""
     import os
 
     from centroflye_tpu_torch.io.fasta import read_seq
     from centroflye_tpu_torch.native import native_iter_seqs
     from centroflye_tpu_torch.parallel.distributed import (
-        finish_partial, is_coordinator, merge_partial_fastas, partial_path,
-        shard_read_stream)
+        finish_partial, is_coordinator, local_device, merge_partial_fastas,
+        partial_path, shard_read_stream)
 
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = local_device()
     unit = read_seq(unit_fn)
     engine = RecruitmentEngine(
         unit, RecruitmentConfig(threshold=threshold, batch_size=batch_size),
