@@ -39,6 +39,15 @@ single-device ones.
 
 Output rows are (monomer_sym, r_st, r_en, reliability) per read, the
 information of the SD TSV, for SDReport.from_decomposition.
+
+Under `utils/logging_utils.recording`, a batch records the self time of
+its phases as spans: `decomposer.cut` (the code plane, and each step's
+active set and windows), `decomposer.launch` (a step's device call up to
+its return), `decomposer.wait` (its readbacks), `decomposer.choose` (the
+first step's choice on the host), `decomposer.advance` (a step's calls
+applied) and `decomposer.records` (the record tuples); and the counters
+`decomposer.steps`, `decomposer.windows` (active windows) and
+`decomposer.batch_rows` (the batch's reads, once a step).
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import PERROW_CALLS, perrow_queries
 from centroflye_tpu_torch.parallel.mesh import (
     Mesh, make_perrow_myers_step, pad_rows, resolve_mesh)
+from centroflye_tpu_torch.utils.logging_utils import count, span
 
 
 @dataclasses.dataclass
@@ -118,12 +128,14 @@ class MonomerDecomposer:
         Q."""
         R, Q = windows.shape[0], 2 * self.n
         n_dev = self.shards.size
-        out = self._steps[mode, collect](
-            pad_rows(np.ascontiguousarray(windows), n_dev, PAD),
-            pad_rows(lens, n_dev, 0))
+        with span("decomposer.launch"):
+            out = self._steps[mode, collect](
+                pad_rows(np.ascontiguousarray(windows), n_dev, PAD),
+                pad_rows(lens, n_dev, 0))
         rows = {"scores": R * Q}
-        return ({k: v[:rows.get(k, R)].cpu().numpy()
-                 for k, v in out.items()}, R, Q)
+        with span("decomposer.wait"):
+            return ({k: v[:rows.get(k, R)].cpu().numpy()
+                     for k, v in out.items()}, R, Q)
 
     def _step(self, windows: np.ndarray, lens: np.ndarray):
         """One lockstep SHW step: windows (R, window) int8 -> each
@@ -139,34 +151,36 @@ class MonomerDecomposer:
         slightly noisier first monomer instance would be skipped in favor
         of a cleaner later one."""
         out, R, Q = self._device_batch(windows, lens, "HW", collect="all")
-        scores = out["scores"].reshape(R, Q, -1)
-        norm = scores / np.maximum(self.ms[None, :, None], 1)
-        best_q = np.zeros(R, np.int64)
-        best_d = np.zeros(R, np.int64)
-        best_e = np.full(R, -1, np.int64)
-        for r in range(R):
-            L = int(lens[r])
-            if L == 0:
-                continue
-            col_min = norm[r, :, :L].min(axis=0)
-            global_min = float(col_min.min())
-            near = col_min <= global_min + tol
-            # earliest LOCAL minimum among near-optimal columns (a column on
-            # a still-descending slope is not an alignment end)
-            left_ok = np.empty(L, bool)
-            left_ok[0] = True
-            left_ok[1:] = col_min[1:] <= col_min[:-1]
-            right_ok = np.empty(L, bool)
-            right_ok[-1] = True
-            right_ok[:-1] = col_min[:-1] <= col_min[1:]
-            candidates = np.nonzero(near & left_ok & right_ok)[0]
-            if len(candidates) == 0:
-                candidates = np.nonzero(near)[0]
-            j = int(candidates[0])
-            q = int(np.argmin(norm[r, :, j]))
-            best_q[r] = q
-            best_d[r] = int(scores[r, q, j])
-            best_e[r] = j
+        with span("decomposer.choose"):
+            scores = out["scores"].reshape(R, Q, -1)
+            norm = scores / np.maximum(self.ms[None, :, None], 1)
+            best_q = np.zeros(R, np.int64)
+            best_d = np.zeros(R, np.int64)
+            best_e = np.full(R, -1, np.int64)
+            for r in range(R):
+                L = int(lens[r])
+                if L == 0:
+                    continue
+                col_min = norm[r, :, :L].min(axis=0)
+                global_min = float(col_min.min())
+                near = col_min <= global_min + tol
+                # earliest LOCAL minimum among near-optimal columns (a
+                # column on a still-descending slope is not an alignment
+                # end)
+                left_ok = np.empty(L, bool)
+                left_ok[0] = True
+                left_ok[1:] = col_min[1:] <= col_min[:-1]
+                right_ok = np.empty(L, bool)
+                right_ok[-1] = True
+                right_ok[:-1] = col_min[:-1] <= col_min[1:]
+                candidates = np.nonzero(near & left_ok & right_ok)[0]
+                if len(candidates) == 0:
+                    candidates = np.nonzero(near)[0]
+                j = int(candidates[0])
+                q = int(np.argmin(norm[r, :, j]))
+                best_q[r] = q
+                best_d[r] = int(scores[r, q, j])
+                best_e[r] = j
         return best_q, best_d, best_e
 
     def decompose(self, reads: Iterable[Tuple[str, str]]
@@ -184,58 +198,67 @@ class MonomerDecomposer:
     def _decompose_batch(self, chunk):
         cfg = self.config
         Wlen = self.window
-        codes = [encode(seq) for _, seq in chunk]
-        r_lens = np.array([len(c) for c in codes], np.int64)
         R = len(chunk)
-        # one code plane, each read followed by Wlen PAD codes: a read's
-        # window at any position it can reach is one slice of it
-        offs = np.zeros(R, np.int64)
-        offs[1:] = np.cumsum(r_lens[:-1] + Wlen)
-        plane = np.full(int(r_lens.sum()) + R * Wlen, PAD, np.int8)
-        for r, c in enumerate(codes):
-            plane[offs[r]:offs[r] + len(c)] = c
-        # every window a read can reach, as a strided view of the plane
-        starts = np.lib.stride_tricks.sliding_window_view(plane, Wlen)
+        with span("decomposer.cut"):
+            codes = [encode(seq) for _, seq in chunk]
+            r_lens = np.array([len(c) for c in codes], np.int64)
+            # one code plane, each read followed by Wlen PAD codes: a
+            # read's window at any position it can reach is one slice of it
+            offs = np.zeros(R, np.int64)
+            offs[1:] = np.cumsum(r_lens[:-1] + Wlen)
+            plane = np.full(int(r_lens.sum()) + R * Wlen, PAD, np.int8)
+            for r, c in enumerate(codes):
+                plane[offs[r]:offs[r] + len(c)] = c
+            # every window a read can reach, as a strided view of the plane
+            starts = np.lib.stride_tricks.sliding_window_view(plane, Wlen)
         pos = np.zeros(R, np.int64)
         steps = []          # per step: (reads, sym, r_st, r_en, reliable)
         first = True
         # min remaining bases to bother aligning another monomer
         min_tail = int(self.mean_len * 0.5)
         while True:
-            act = np.nonzero(pos + min_tail <= r_lens)[0]
-            if len(act) == 0:
-                break
-            # the active reads' windows only
-            windows = starts[offs[act] + pos[act]]
-            wlens = np.minimum(Wlen, r_lens[act] - pos[act]).astype(np.int32)
+            with span("decomposer.cut"):
+                act = np.nonzero(pos + min_tail <= r_lens)[0]
+                if len(act) == 0:
+                    break
+                # the active reads' windows only
+                windows = starts[offs[act] + pos[act]]
+                wlens = np.minimum(Wlen, r_lens[act] - pos[act]).astype(
+                    np.int32)
+            count("decomposer.steps")
+            count("decomposer.windows", len(act))
+            count("decomposer.batch_rows", R)
             if first:
                 best_q, dist, end = self._first_step(windows, wlens)
             else:
                 best_q, dist, end = self._step(windows, wlens)
-            q, d, e = best_q.astype(np.int64), dist, end.astype(np.int64)
-            p = pos[act]
-            mlen = self.ms[q].astype(np.int64)
-            if first:
-                # free start: locate the instance start by its end
-                r_en = p + e + 1
-                r_st = np.maximum(p, r_en - mlen)
-            else:
-                r_st, r_en = p, p + e + 1
-            # no alignment progress: a gap step of one monomer's length
-            gap = e < 0
-            r_st = np.where(gap, p, r_st)
-            r_en = np.where(gap, p + mlen, r_en)
-            reliable = ~gap & (d <= cfg.max_divergence * mlen)
-            steps.append((act, q, r_st, r_en, reliable))
-            pos[act] = r_en
+            with span("decomposer.advance"):
+                q, d, e = best_q.astype(np.int64), dist, end.astype(np.int64)
+                p = pos[act]
+                mlen = self.ms[q].astype(np.int64)
+                if first:
+                    # free start: locate the instance start by its end
+                    r_en = p + e + 1
+                    r_st = np.maximum(p, r_en - mlen)
+                else:
+                    r_st, r_en = p, p + e + 1
+                # no alignment progress: a gap step of one monomer's length
+                gap = e < 0
+                r_st = np.where(gap, p, r_st)
+                r_en = np.where(gap, p + mlen, r_en)
+                reliable = ~gap & (d <= cfg.max_divergence * mlen)
+                steps.append((act, q, r_st, r_en, reliable))
+                pos[act] = r_en
             first = False
-        rows: List[List[Tuple[int, int, int, str]]] = [[] for _ in range(R)]
-        for act, q, r_st, r_en, reliable in steps:
-            for r, row in zip(act.tolist(), zip(
-                    q.tolist(), r_st.tolist(), r_en.tolist(),
-                    np.where(reliable, "+", "-").tolist())):
-                rows[r].append(row)
-        return {chunk[r][0]: rows[r] for r in range(R)}
+        with span("decomposer.records"):
+            rows: List[List[Tuple[int, int, int, str]]] = [
+                [] for _ in range(R)]
+            for act, q, r_st, r_en, reliable in steps:
+                for r, row in zip(act.tolist(), zip(
+                        q.tolist(), r_st.tolist(), r_en.tolist(),
+                        np.where(reliable, "+", "-").tolist())):
+                    rows[r].append(row)
+            return {chunk[r][0]: rows[r] for r in range(R)}
 
 
 def decompose_to_monostrings(monomers: Dict[str, str],

@@ -73,7 +73,7 @@ from centroflye_tpu_torch.stages.recruitment import recruit_file
 from centroflye_tpu_torch.stages.unit_decomposition import (DecompRecord,
                                                             Decomposition,
                                                             UnitDecomposer)
-from centroflye_tpu_torch.utils.logging_utils import MetricsRegistry
+from centroflye_tpu_torch.utils.logging_utils import MetricsRegistry, span
 
 logger = logging.getLogger("centroflye_tpu_torch")
 
@@ -269,10 +269,7 @@ def run_decomposition(unit: str, centromeric_fn: str,
     save_decomposition(dec, cache_fn)
     t2 = time.perf_counter()
     logger.info("decomposition %.3fs (%d records), artifact %.3fs",
-                t1 - t0, len(dec.records), t2 - t1, extra={
-                    "seconds": {"decomposition": t1 - t0,
-                                "decomposition_artifact": t2 - t1},
-                    "counts": {"records": len(dec.records)}})
+                t1 - t0, len(dec.records), t2 - t1)
     return dec
 
 
@@ -314,58 +311,57 @@ def run_unique_kmers(dec: Decomposition, config: KmerRecruitmentConfig,
     seqs = [rec.seq for rec in records.values()]
     with (metrics or MetricsRegistry()).stage("unique_kmers", "kmers") as m:
         t0 = time.perf_counter()
-        rare = get_rare_kmers(seqs, config, coverage, device=device,
-                              mesh=mesh)
+        with span("rare"):
+            rare = get_rare_kmers(seqs, config, coverage, device=device,
+                                  mesh=mesh)
         t1 = time.perf_counter()
-        clouds = build_read_clouds(records, rare, config.k)
-        _, tensor, n_units, _ = pad_clouds(clouds, sorted(records))
+        with span("clouds"):
+            clouds = build_read_clouds(records, rare, config.k)
+            _, tensor, n_units, _ = pad_clouds(clouds, sorted(records))
         t2 = time.perf_counter()
-        # a (i, j, d) key repeats once per read spanning both unit copies
-        # with BOTH k-mers surviving that read's errors: ~coverage/2
-        # spanning reads x survival^2 joint retention — the strip-count
-        # divisor that keeps per-strip tables near capacity without
-        # overflowing them
-        surv = float(config.kmer_survival_rate)
-        uniq_codes, edges = recruit_unique_kmers(
-            tensor, n_units, rare, config, device=device, mesh=mesh,
-            dedup_hint=max(1, int(int(coverage) / 2 * surv * surv)))
+        with span("sweep"):
+            # a (i, j, d) key repeats once per read spanning both unit copies
+            # with BOTH k-mers surviving that read's errors: ~coverage/2
+            # spanning reads x survival^2 joint retention — the strip-count
+            # divisor that keeps per-strip tables near capacity without
+            # overflowing them
+            surv = float(config.kmer_survival_rate)
+            uniq_codes, edges = recruit_unique_kmers(
+                tensor, n_units, rare, config, device=device, mesh=mesh,
+                dedup_hint=max(1, int(int(coverage) / 2 * surv * surv)))
         t3 = time.perf_counter()
         m.items = len(uniq_codes)
 
     # artifact parity: sorted kmer strings, one per line (reference
     # distance_based_kmer_recruitment.py:158-171)
-    strs = kmer_strings(uniq_codes, config.k)
-    with atomic_write(kmers_fn) as f:
-        for s in sorted(strs):
-            print(s, file=f)
-    edges_fn = os.path.join(
-        outdir, f"unique_edges_min_edge_cov_{config.min_coverage}.txt")
-    rare_strs = np.asarray(kmer_strings(rare, config.k))
-    # vectorized formatting: edge files reach millions of rows at
-    # production scale, a per-row print() loop costs minutes there
-    with atomic_write(edges_fn) as f:
-        for e0 in range(0, len(edges.i), 1 << 20):
-            sl = slice(e0, e0 + (1 << 20))
-            cols = np.char.add(np.char.add(np.char.add(np.char.add(
-                np.char.add(np.char.add(
-                    edges.dist[sl].astype(str), " "),
-                    rare_strs[edges.i[sl]]), " "),
-                rare_strs[edges.j[sl]]), " "),
-                edges.freq[sl].astype(str))
-            f.write("\n".join(cols.tolist()))
-            if len(cols):
-                f.write("\n")
+    with span("artifacts"):
+        strs = kmer_strings(uniq_codes, config.k)
+        with atomic_write(kmers_fn) as f:
+            for s in sorted(strs):
+                print(s, file=f)
+        edges_fn = os.path.join(
+            outdir, f"unique_edges_min_edge_cov_{config.min_coverage}.txt")
+        rare_strs = np.asarray(kmer_strings(rare, config.k))
+        # vectorized formatting: edge files reach millions of rows at
+        # production scale, a per-row print() loop costs minutes there
+        with atomic_write(edges_fn) as f:
+            for e0 in range(0, len(edges.i), 1 << 20):
+                sl = slice(e0, e0 + (1 << 20))
+                cols = np.char.add(np.char.add(np.char.add(np.char.add(
+                    np.char.add(np.char.add(
+                        edges.dist[sl].astype(str), " "),
+                        rare_strs[edges.i[sl]]), " "),
+                    rare_strs[edges.j[sl]]), " "),
+                    edges.freq[sl].astype(str))
+                f.write("\n".join(cols.tolist()))
+                if len(cols):
+                    f.write("\n")
     t4 = time.perf_counter()
     logger.info(
         "unique_kmers phases: rare %.3fs (%d kmers), clouds %.3fs, "
         "sweep+filter %.3fs, artifacts %.3fs (%d unique, %d edges)",
         t1 - t0, len(rare), t2 - t1, t3 - t2, t4 - t3, len(uniq_codes),
-        len(edges.i), extra={
-            "seconds": {"rare": t1 - t0, "clouds": t2 - t1,
-                        "sweep": t3 - t2, "artifacts": t4 - t3},
-            "counts": {"rare_kmers": len(rare),
-                       "unique_kmers": len(uniq_codes),
-                       "edges": len(edges.i)}})
+        len(edges.i))
     return UniqueKmers(uniq_codes, rare, tensor, n_units, edges)
 
 
@@ -383,8 +379,9 @@ def run_placement(dec: Decomposition, uniq_codes: np.ndarray,
     pos_fn = os.path.join(outdir, "tr_resolution", "read_positions.csv")
     records = {r: dec.records[r] for r in sorted(dec.records)}
     t0 = time.perf_counter()
-    clouds = build_read_clouds(records, uniq_codes, k)
-    clouds = filter_read_clouds(clouds, min_mult=config.min_kmer_mult)
+    with span("placement_clouds"):
+        clouds = build_read_clouds(records, uniq_codes, k)
+        clouds = filter_read_clouds(clouds, min_mult=config.min_kmer_mult)
     t1 = time.perf_counter()
     if os.path.exists(pos_fn):
         return read_positions_file(pos_fn), clouds
@@ -394,15 +391,12 @@ def run_placement(dec: Decomposition, uniq_codes: np.ndarray,
         placed = sum(1 for p in placements.values() if p is not None)
         m.items = placed
     t2 = time.perf_counter()
-    placer.write_positions(pos_fn)
+    with span("placement_artifact"):
+        placer.write_positions(pos_fn)
     t3 = time.perf_counter()
     logger.info("placement: clouds %.3fs, placement %.3fs, artifact %.3fs "
                 "(%d of %d reads placed)", t1 - t0, t2 - t1, t3 - t2,
-                placed, len(placements), extra={
-                    "seconds": {"placement_clouds": t1 - t0,
-                                "placement": t2 - t1,
-                                "placement_artifact": t3 - t2},
-                    "counts": {"placed": placed}})
+                placed, len(placements))
     return placements, clouds
 
 
@@ -433,31 +427,30 @@ def run_placement_validation(placements: Dict[str, Optional[int]],
                     agree.add(parts[0])
         return agree
     t0 = time.perf_counter()
-    contig = CloudContig(config.min_cloud_kmer_freq)
-    for r_id, pos in placements.items():
-        if pos is not None and r_id in clouds:
-            contig.add_read(clouds[r_id], pos)
-    positions, _ = map_reads_fast(
-        contig, clouds, threshold=(config.min_unit, config.min_inters))
-    t1 = time.perf_counter()
-    n_same = 0
-    agree_set = set()
-    with atomic_write(out_fn) as f:
-        print("r_id placed remapped agree", file=f)
+    with span("validation"):
+        contig = CloudContig(config.min_cloud_kmer_freq)
         for r_id, pos in placements.items():
-            remapped = positions.get(r_id)
-            agree = (pos == remapped)
-            if agree and pos is not None:
-                n_same += 1
-                agree_set.add(r_id)
-            print(r_id, pos, remapped, agree, file=f)
+            if pos is not None and r_id in clouds:
+                contig.add_read(clouds[r_id], pos)
+        positions, _ = map_reads_fast(
+            contig, clouds, threshold=(config.min_unit, config.min_inters))
+    t1 = time.perf_counter()
+    with span("validation_artifact"):
+        n_same = 0
+        agree_set = set()
+        with atomic_write(out_fn) as f:
+            print("r_id placed remapped agree", file=f)
+            for r_id, pos in placements.items():
+                remapped = positions.get(r_id)
+                agree = (pos == remapped)
+                if agree and pos is not None:
+                    n_same += 1
+                    agree_set.add(r_id)
+                print(r_id, pos, remapped, agree, file=f)
     t2 = time.perf_counter()
     placed = sum(1 for p in placements.values() if p is not None)
     logger.info("placement validation: %d/%d re-map to their placement "
-                "(%.3fs, artifact %.3fs)", n_same, placed, t1 - t0, t2 - t1,
-                extra={"seconds": {"validation": t1 - t0,
-                                   "validation_artifact": t2 - t1},
-                       "counts": {"agree": n_same}})
+                "(%.3fs, artifact %.3fs)", n_same, placed, t1 - t0, t2 - t1)
     # starvation/misplacement tripwire: a healthy run places most
     # decomposed reads and they re-map consistently; both collapse
     # when the edge-coverage cutoff starves at low coverage. Surface the

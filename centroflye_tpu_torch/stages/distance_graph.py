@@ -56,6 +56,7 @@ from centroflye_tpu_torch.ops.kmers import (
 )
 from centroflye_tpu_torch.parallel.mesh import (
     Mesh, make_pair_bucket_step, replicate)
+from centroflye_tpu_torch.utils.logging_utils import count, span
 
 logger = logging.getLogger("centroflye_tpu_torch")
 _FAR = 1 << 62        # beyond every position and every cumulative count
@@ -427,202 +428,204 @@ def _strip_sweep(
     `max_capacity` splits in half. A strip past the device grid's limits
     is planned on the host per SEGMENT (bucket slices bounded by pair
     and sub-bucket counts), so peak host memory is O(segment)."""
-    t_plan = time.perf_counter()
-    R, T, K = clouds_tensor.shape
-    # key packing is i << 32 | j << 8 | d, and the filter regroups by
-    # key >> 8 — both alias silently if these bounds are exceeded
-    if config.max_distance >= 256:
-        raise ValueError(
-            f"max_distance {config.max_distance} >= 256 overflows the "
-            "8-bit distance field of the packed key")
-    max_idx = int(clouds_tensor.max()) if clouds_tensor.size else 0
-    if max_idx >= 1 << 24:
-        raise ValueError(
-            "rare k-mer index >= 2^24 overflows the packed pair key")
-    # canonicalize rows: ascending valid entries front-packed, -1 pads
-    # behind (strip segments and B-cloud slices index contiguous valid
-    # prefixes; pad_clouds already emits this layout, synthetic callers
-    # may not; within-cloud order cannot change any (i, j, d) count)
-    if clouds_tensor.size:
-        srt = np.sort(clouds_tensor, axis=2)      # any -1 pads sort first
-        n_inv = (srt < 0).sum(axis=2, keepdims=True)
-        idx = (np.arange(K, dtype=np.int64)[None, None, :] + n_inv) % K
-        clouds_tensor = np.take_along_axis(srt, idx, axis=2)
-    bound = _pair_obs_bound(clouds_tensor, n_units, config)
-    if capacity is None:
-        capacity = 1 << max(
-            16, int(np.ceil(np.log2(max(min(bound, strip_capacity), 2)))))
-    max_capacity = max(max_capacity, capacity)
-    # strip sizing: the pair-obs bound assumes every observation mints a
-    # distinct (i, j, d) key; dedup_hint divides it for STRIP COUNT only.
-    # 0.94 margin: strips whose raw pair count lands just over capacity
-    # lose the no-overflow proof and pay a host sync per saturated merge
-    n_strips = max(1, -(-bound // max(
-        int(capacity * 0.94) * max(dedup_hint, 1), 1)))
-    strip_w = max(1, -(-(max_idx + 1) // n_strips))
-    n_strips = max(1, -(-(max_idx + 1) // strip_w))
+    with span("sweep_plan"):
+        t_plan = time.perf_counter()
+        R, T, K = clouds_tensor.shape
+        # key packing is i << 32 | j << 8 | d, and the filter regroups by
+        # key >> 8 — both alias silently if these bounds are exceeded
+        if config.max_distance >= 256:
+            raise ValueError(
+                f"max_distance {config.max_distance} >= 256 overflows the "
+                "8-bit distance field of the packed key")
+        max_idx = int(clouds_tensor.max()) if clouds_tensor.size else 0
+        if max_idx >= 1 << 24:
+            raise ValueError(
+                "rare k-mer index >= 2^24 overflows the packed pair key")
+        # canonicalize rows: ascending valid entries front-packed, -1 pads
+        # behind (strip segments and B-cloud slices index contiguous valid
+        # prefixes; pad_clouds already emits this layout, synthetic callers
+        # may not; within-cloud order cannot change any (i, j, d) count)
+        if clouds_tensor.size:
+            srt = np.sort(clouds_tensor, axis=2)      # any -1 pads sort first
+            n_inv = (srt < 0).sum(axis=2, keepdims=True)
+            idx = (np.arange(K, dtype=np.int64)[None, None, :] + n_inv) % K
+            clouds_tensor = np.take_along_axis(srt, idx, axis=2)
+        bound = _pair_obs_bound(clouds_tensor, n_units, config)
+        if capacity is None:
+            capacity = 1 << max(
+                16, int(np.ceil(np.log2(max(min(bound, strip_capacity), 2)))))
+        max_capacity = max(max_capacity, capacity)
+        # strip sizing: the pair-obs bound assumes every observation mints a
+        # distinct (i, j, d) key; dedup_hint divides it for STRIP COUNT only.
+        # 0.94 margin: strips whose raw pair count lands just over capacity
+        # lose the no-overflow proof and pay a host sync per saturated merge
+        n_strips = max(1, -(-bound // max(
+            int(capacity * 0.94) * max(dedup_hint, 1), 1)))
+        strip_w = max(1, -(-(max_idx + 1) // n_strips))
+        n_strips = max(1, -(-(max_idx + 1) // strip_w))
 
-    # without a mesh, the sweep runs as the one shard of `device`
-    if mesh is None or mesh.size <= 1:
-        mesh = Mesh([device])
-    n_dev, device = mesh.size, mesh.first
-    if entry_chunk is None:
-        entry_chunk = max(1, min(element_budget, capacity))
-    # chunks split evenly over the shards
-    entry_chunk = -(-entry_chunk // n_dev) * n_dev
-    # tail chunks use a 16x smaller shape: per-strip remainders would
-    # otherwise pad up to a full chunk each
-    tail_chunk = -(-max(n_dev, entry_chunk // 16) // n_dev) * n_dev
+        # without a mesh, the sweep runs as the one shard of `device`
+        if mesh is None or mesh.size <= 1:
+            mesh = Mesh([device])
+        n_dev, device = mesh.size, mesh.first
+        if entry_chunk is None:
+            entry_chunk = max(1, min(element_budget, capacity))
+        # chunks split evenly over the shards
+        entry_chunk = -(-entry_chunk // n_dev) * n_dev
+        # tail chunks use a 16x smaller shape: per-strip remainders would
+        # otherwise pad up to a full chunk each
+        tail_chunk = -(-max(n_dev, entry_chunk // 16) // n_dev) * n_dev
 
-    Kp = max(K, 1)
-    flat_host = np.ascontiguousarray(
-        clouds_tensor.reshape(-1), dtype=np.int32)
-    if flat_host.size == 0:
-        flat_host = np.full(1, -1, np.int32)
-    if int(np.int64(R) * T * Kp) >= 1 << 31:
-        raise ValueError("flat cloud tensor exceeds int32 addressing")
-    flat_dev = replicate(mesh, flat_host)       # a copy a distinct device
-    # per-cloud sizes, masked to live unit instances
-    sizes = (clouds_tensor >= 0).sum(axis=2).astype(np.int64)  # (R, T)
-    live = np.arange(T, dtype=np.int64)[None, :] < \
-        np.asarray(n_units, np.int64)[:, None]
-    sizes = np.where(live, sizes, 0)
-    d_hi = min(config.max_distance, T - 1)
+        Kp = max(K, 1)
+        flat_host = np.ascontiguousarray(
+            clouds_tensor.reshape(-1), dtype=np.int32)
+        if flat_host.size == 0:
+            flat_host = np.full(1, -1, np.int32)
+        if int(np.int64(R) * T * Kp) >= 1 << 31:
+            raise ValueError("flat cloud tensor exceeds int32 addressing")
+        flat_dev = replicate(mesh, flat_host)       # a copy a distinct device
+        # per-cloud sizes, masked to live unit instances
+        sizes = (clouds_tensor >= 0).sum(axis=2).astype(np.int64)  # (R, T)
+        live = np.arange(T, dtype=np.int64)[None, :] < \
+            np.asarray(n_units, np.int64)[:, None]
+        sizes = np.where(live, sizes, 0)
+        d_hi = min(config.max_distance, T - 1)
 
-    # per-strip contiguous segments of each sorted row, computed ON
-    # DEMAND per strip boundary (element counts below a value threshold)
-    # — strips are a WORKLIST of [lo, hi) value ranges so an
-    # overflowing strip can split in half and retry
-    vmask = clouds_tensor >= 0
-    zeros_rt = np.zeros_like(sizes)
-    below_cache: Dict[int, np.ndarray] = {}
+        # per-strip contiguous segments of each sorted row, computed ON
+        # DEMAND per strip boundary (element counts below a value threshold)
+        # — strips are a WORKLIST of [lo, hi) value ranges so an
+        # overflowing strip can split in half and retry
+        vmask = clouds_tensor >= 0
+        zeros_rt = np.zeros_like(sizes)
+        below_cache: Dict[int, np.ndarray] = {}
 
-    def below_count(v: int) -> np.ndarray:
-        if v <= 0:
-            return zeros_rt
-        if v > max_idx:
-            return sizes
-        if v not in below_cache:
-            below_cache[v] = ((clouds_tensor < v) & vmask).sum(axis=2)
-        return below_cache[v]
+        def below_count(v: int) -> np.ndarray:
+            if v <= 0:
+                return zeros_rt
+            if v > max_idx:
+                return sizes
+            if v not in below_cache:
+                below_cache[v] = ((clouds_tensor < v) & vmask).sum(axis=2)
+            return below_cache[v]
 
-    # pair counts are LINEAR in the strip's per-(read, unit) element
-    # counts: pairs(strip) = sum_{r,t} seg_len[r,t] * W[r,t] with
-    # W[r,t] = sum_{d in [min_d, d_hi], t+d < T} sizes[r, t+d]
-    _scs = np.concatenate(
-        [np.cumsum(sizes[:, ::-1], axis=1)[:, ::-1],
-         np.zeros((R, 1), np.int64)], axis=1)   # suffix sums, (R, T+1)
-    _w_lo = np.minimum(np.arange(T) + config.min_distance, T)
-    _w_hi = np.minimum(np.arange(T) + d_hi + 1, T)
-    pair_weight = np.take_along_axis(_scs, _w_lo[None, :], axis=1) - \
-        np.take_along_axis(_scs, _w_hi[None, :], axis=1)   # (R, T)
+        # pair counts are LINEAR in the strip's per-(read, unit) element
+        # counts: pairs(strip) = sum_{r,t} seg_len[r,t] * W[r,t] with
+        # W[r,t] = sum_{d in [min_d, d_hi], t+d < T} sizes[r, t+d]
+        _scs = np.concatenate(
+            [np.cumsum(sizes[:, ::-1], axis=1)[:, ::-1],
+             np.zeros((R, 1), np.int64)], axis=1)   # suffix sums, (R, T+1)
+        _w_lo = np.minimum(np.arange(T) + config.min_distance, T)
+        _w_hi = np.minimum(np.arange(T) + d_hi + 1, T)
+        pair_weight = np.take_along_axis(_scs, _w_lo[None, :], axis=1) - \
+            np.take_along_axis(_scs, _w_hi[None, :], axis=1)   # (R, T)
 
-    def pair_count(lo: int, hi: int) -> int:
-        return int(((below_count(hi) - below_count(lo))
-                    .astype(np.int64) * pair_weight).sum())
+        def pair_count(lo: int, hi: int) -> int:
+            return int(((below_count(hi) - below_count(lo))
+                        .astype(np.int64) * pair_weight).sum())
 
-    # per-strip proof that capacity-saturated tables cannot overflow:
-    # distinct keys <= the strip's pair-observation bound, so when that
-    # bound fits the capacity every check-and-double host sync is dead
-    strip_no_ovf = [False]
-    dedup_obs = [None]
-    dedup_samples: List[float] = []
-    sweep_grid = [None]  # once-per-sweep device sizes plane + vd counts
-    steps = {}                  # (chunk, capacity) -> the sharded step
+        # per-strip proof that capacity-saturated tables cannot overflow:
+        # distinct keys <= the strip's pair-observation bound, so when that
+        # bound fits the capacity every check-and-double host sync is dead
+        strip_no_ovf = [False]
+        dedup_obs = [None]
+        dedup_samples: List[float] = []
+        sweep_grid = [None]  # once-per-sweep device sizes plane + vd counts
+        steps = {}                  # (chunk, capacity) -> the sharded step
 
-    def run_chunk(bufs, c0, total, chunk):
-        """One pair-range chunk -> (table, cap). The chunk table covers
-        the chunk's pair count, so overflow is impossible whenever the
-        strip capacity allows it and NO host sync happens."""
-        nonlocal capacity
-        cap = min(_next_pow2(chunk), capacity)
-        while True:
-            if (chunk, cap) not in steps:
-                steps[chunk, cap] = make_pair_bucket_step(
-                    mesh, chunk=chunk, capacity=cap)
-            ukeys, cnt, n = steps[chunk, cap](flat_dev, *bufs, c0, total)
-            if cap >= chunk or strip_no_ovf[0] or int(n) <= cap:
-                return (ukeys, cnt), cap
-            cap *= 2
-            if cap > max_capacity:
-                raise _StripOverflow
-            if cap > capacity:
-                capacity = cap
+        def run_chunk(bufs, c0, total, chunk):
+            """One pair-range chunk -> (table, cap). The chunk table covers
+            the chunk's pair count, so overflow is impossible whenever the
+            strip capacity allows it and NO host sync happens."""
+            nonlocal capacity
+            cap = min(_next_pow2(chunk), capacity)
+            while True:
+                if (chunk, cap) not in steps:
+                    steps[chunk, cap] = make_pair_bucket_step(
+                        mesh, chunk=chunk, capacity=cap)
+                ukeys, cnt, n = steps[chunk, cap](flat_dev, *bufs, c0, total)
+                if cap >= chunk or strip_no_ovf[0] or int(n) <= cap:
+                    return (ukeys, cnt), cap
+                cap *= 2
+                if cap > max_capacity:
+                    raise _StripOverflow
+                if cap > capacity:
+                    capacity = cap
 
-    logger.info(
-        "distance sweep: %d strip(s), chunk %d pairs, capacity %d, "
-        "pair-obs bound %d", n_strips, entry_chunk, capacity, bound,
-        extra={"counts": {"pair_obs": bound}})
-    yielded = False
-    # LIFO worklist of [lo, hi) i-value ranges, seeded with the uniform
-    # grid and popped in ascending order (splits push their halves back
-    # in order) — yields stay globally sorted by i
-    work = [(s * strip_w,
-             (s + 1) * strip_w if n_strips > 1 else max(max_idx + 1, 1))
-            for s in range(n_strips)][::-1]
-    plan_s = time.perf_counter() - t_plan
+        logger.info(
+            "distance sweep: %d strip(s), chunk %d pairs, capacity %d, "
+            "pair-obs bound %d", n_strips, entry_chunk, capacity, bound)
+        count("pair_obs", bound)
+        yielded = False
+        # LIFO worklist of [lo, hi) i-value ranges, seeded with the uniform
+        # grid and popped in ascending order (splits push their halves back
+        # in order) — yields stay globally sorted by i
+        work = [(s * strip_w,
+                 (s + 1) * strip_w if n_strips > 1 else max(max_idx + 1, 1))
+                for s in range(n_strips)][::-1]
+        plan_s = time.perf_counter() - t_plan
     while work:
         s_lo, s_hi = work.pop()
-        t_strip = time.perf_counter()
-        lo_c = below_count(s_lo)
-        seg_lo = lo_c
-        seg_len = below_count(s_hi) - lo_c
-        # cheap reductions first: strip pair/sub-bucket totals without
-        # materializing the bucket grid on host
-        total_strip = int((seg_len.astype(np.int64) * pair_weight).sum())
-        total_subs = 0
-        for d in range(config.min_distance, d_hi + 1):
-            if d >= T:
-                break
-            total_subs += int(np.minimum(
-                seg_len[:, :T - d], sizes[:, d:]).sum())
-        if total_strip == 0:
-            plan_s += time.perf_counter() - t_strip
-            continue
-        strip_no_ovf[0] = total_strip <= capacity
-        # device-grid path: the bucket grid and sub-bucket expansion are
-        # derived ON DEVICE from the (R, T) strip segments; a mesh (whose
-        # step takes the sub-bucket list on every device), a strip past
-        # int32 pair indexing, or clouds of 2^16 k-mers or more (the
-        # packed plane's 16-bit fields) are planned on the host
-        devgrid = (n_dev == 1 and total_strip < (1 << 31)
-                   and total_subs < (1 << 31) and Kp < (1 << 16))
-        nb_buckets = sum(R * max(0, T - d) for d in range(
-            config.min_distance, d_hi + 1))
-        n_subs_log = total_subs
-        seg_bounds = None
-        if not devgrid:
-            buckets = _strip_buckets(seg_lo, seg_len, sizes, n_units,
-                                     config.min_distance, d_hi, T, Kp)
-            if buckets is None:
-                plan_s += time.perf_counter() - t_strip
-                continue
-            cnts_b, ba, bb, nbv, dvv = buckets
-            # per-bucket sub-bucket count (the smaller cloud side): host
-            # expansion memory is proportional to it, so segment the
-            # BUCKET list first and expand per segment
-            n_sub_b = np.minimum(cnts_b // np.maximum(nbv, 1), nbv)
-            bcum = np.concatenate([[0], np.cumsum(cnts_b)])
-            bscum = np.concatenate([[0], np.cumsum(n_sub_b)])
-            n_subs_log = int(bscum[-1])
-            total_strip = int(bcum[-1])
+        with span("sweep_plan"):
+            t_strip = time.perf_counter()
+            lo_c = below_count(s_lo)
+            seg_lo = lo_c
+            seg_len = below_count(s_hi) - lo_c
+            # cheap reductions first: strip pair/sub-bucket totals without
+            # materializing the bucket grid on host
+            total_strip = int((seg_len.astype(np.int64) * pair_weight).sum())
+            total_subs = 0
+            for d in range(config.min_distance, d_hi + 1):
+                if d >= T:
+                    break
+                total_subs += int(np.minimum(
+                    seg_len[:, :T - d], sizes[:, d:]).sum())
             if total_strip == 0:
                 plan_s += time.perf_counter() - t_strip
                 continue
-            # segments bounded by both pair count (< 2^30) and sub-bucket
-            # count (host memory)
-            seg_bounds = [0]
-            nb_buckets = len(cnts_b)
-            while seg_bounds[-1] < nb_buckets:
-                b0 = seg_bounds[-1]
-                p_lim = int(np.searchsorted(
-                    bcum, bcum[b0] + (1 << 30), side="right")) - 1
-                s_lim = int(np.searchsorted(
-                    bscum, bscum[b0] + subbucket_budget,
-                    side="right")) - 1
-                nxt = max(min(p_lim, s_lim), b0 + 1)
-                seg_bounds.append(min(nxt, nb_buckets))
-        plan_s += time.perf_counter() - t_strip
+            strip_no_ovf[0] = total_strip <= capacity
+            # device-grid path: the bucket grid and sub-bucket expansion are
+            # derived ON DEVICE from the (R, T) strip segments; a mesh (whose
+            # step takes the sub-bucket list on every device), a strip past
+            # int32 pair indexing, or clouds of 2^16 k-mers or more (the
+            # packed plane's 16-bit fields) are planned on the host
+            devgrid = (n_dev == 1 and total_strip < (1 << 31)
+                       and total_subs < (1 << 31) and Kp < (1 << 16))
+            nb_buckets = sum(R * max(0, T - d) for d in range(
+                config.min_distance, d_hi + 1))
+            n_subs_log = total_subs
+            seg_bounds = None
+            if not devgrid:
+                buckets = _strip_buckets(seg_lo, seg_len, sizes, n_units,
+                                         config.min_distance, d_hi, T, Kp)
+                if buckets is None:
+                    plan_s += time.perf_counter() - t_strip
+                    continue
+                cnts_b, ba, bb, nbv, dvv = buckets
+                # per-bucket sub-bucket count (the smaller cloud side): host
+                # expansion memory is proportional to it, so segment the
+                # BUCKET list first and expand per segment
+                n_sub_b = np.minimum(cnts_b // np.maximum(nbv, 1), nbv)
+                bcum = np.concatenate([[0], np.cumsum(cnts_b)])
+                bscum = np.concatenate([[0], np.cumsum(n_sub_b)])
+                n_subs_log = int(bscum[-1])
+                total_strip = int(bcum[-1])
+                if total_strip == 0:
+                    plan_s += time.perf_counter() - t_strip
+                    continue
+                # segments bounded by both pair count (< 2^30) and sub-bucket
+                # count (host memory)
+                seg_bounds = [0]
+                nb_buckets = len(cnts_b)
+                while seg_bounds[-1] < nb_buckets:
+                    b0 = seg_bounds[-1]
+                    p_lim = int(np.searchsorted(
+                        bcum, bcum[b0] + (1 << 30), side="right")) - 1
+                    s_lim = int(np.searchsorted(
+                        bscum, bscum[b0] + subbucket_budget,
+                        side="right")) - 1
+                    nxt = max(min(p_lim, s_lim), b0 + 1)
+                    seg_bounds.append(min(nxt, nb_buckets))
+            plan_s += time.perf_counter() - t_strip
 
         # binary-counter merge forest: chunk tables enter at their own
         # (power-of-two) capacity and same-sized tables merge pairwise
@@ -657,22 +660,23 @@ def _strip_sweep(
             segment on the devgrid path, host-expanded slices else."""
             nonlocal plan_s
             if devgrid:
-                t0 = time.perf_counter()
-                if sweep_grid[0] is None:
-                    # once per sweep: sizes plane on device + host
-                    # valid-distance counts per unit column
-                    sweep_grid[0] = (
-                        torch.from_numpy(sizes.ravel()).to(device),
-                        np.maximum(np.minimum(
-                            d_hi, T - 1 - np.arange(T))
-                            - config.min_distance + 1, 0))
-                sizes_flat_dev, vd_plane = sweep_grid[0]
-                packed = (seg_lo.astype(np.int64) << 16) | seg_len
-                nzmask = seg_len > 0
-                nnz = int(nzmask.sum())
-                nb = int((nzmask * vd_plane[None, :]).sum())
-                packed_dev = torch.from_numpy(packed.ravel()).to(device)
-                plan_s += time.perf_counter() - t0
+                with span("sweep_plan"):
+                    t0 = time.perf_counter()
+                    if sweep_grid[0] is None:
+                        # once per sweep: sizes plane on device + host
+                        # valid-distance counts per unit column
+                        sweep_grid[0] = (
+                            torch.from_numpy(sizes.ravel()).to(device),
+                            np.maximum(np.minimum(
+                                d_hi, T - 1 - np.arange(T))
+                                - config.min_distance + 1, 0))
+                    sizes_flat_dev, vd_plane = sweep_grid[0]
+                    packed = (seg_lo.astype(np.int64) << 16) | seg_len
+                    nzmask = seg_len > 0
+                    nnz = int(nzmask.sum())
+                    nb = int((nzmask * vd_plane[None, :]).sum())
+                    packed_dev = torch.from_numpy(packed.ravel()).to(device)
+                    plan_s += time.perf_counter() - t0
                 yield _prep_strip_device(
                     flat_dev[0], packed_dev, sizes_flat_dev, nnz, nb,
                     total_subs, total_strip, min_d=config.min_distance,
@@ -683,25 +687,26 @@ def _strip_sweep(
                 return
             for si in range(len(seg_bounds) - 1):
                 b0, b1 = seg_bounds[si], seg_bounds[si + 1]
-                t0 = time.perf_counter()
-                counts, cvals, biter, aconst, dvs = _expand_subbuckets(
-                    flat_host, cnts_b[b0:b1], ba[b0:b1], bb[b0:b1],
-                    nbv[b0:b1], dvv[b0:b1])
-                cum = np.concatenate([[0], np.cumsum(counts)])
-                total_seg = int(cum[-1])
-                if total_seg == 0:
+                with span("sweep_plan"):
+                    t0 = time.perf_counter()
+                    counts, cvals, biter, aconst, dvs = _expand_subbuckets(
+                        flat_host, cnts_b[b0:b1], ba[b0:b1], bb[b0:b1],
+                        nbv[b0:b1], dvv[b0:b1])
+                    cum = np.concatenate([[0], np.cumsum(counts)])
+                    total_seg = int(cum[-1])
+                    if total_seg == 0:
+                        plan_s += time.perf_counter() - t0
+                        continue
+                    E = len(counts)
+                    Epad = _next_pow2(E)
+                    starts_h = np.full(Epad + 1, total_seg, np.int64)
+                    starts_h[:E + 1] = cum
+                    arrs = [starts_h]
+                    for v in (cvals, biter, aconst, dvs):
+                        a = np.zeros(Epad, np.int64)
+                        a[:E] = v
+                        arrs.append(a)
                     plan_s += time.perf_counter() - t0
-                    continue
-                E = len(counts)
-                Epad = _next_pow2(E)
-                starts_h = np.full(Epad + 1, total_seg, np.int64)
-                starts_h[:E + 1] = cum
-                arrs = [starts_h]
-                for v in (cvals, biter, aconst, dvs):
-                    a = np.zeros(Epad, np.int64)
-                    a[:E] = v
-                    arrs.append(a)
-                plan_s += time.perf_counter() - t0
                 yield tuple(replicate(mesh, a) for a in arrs), total_seg
 
         # RAW fast path: a strip that fits one chunk skips the count
@@ -717,8 +722,9 @@ def _strip_sweep(
                 "distance strip [%d, %d): %d pairs / %d buckets "
                 "(%d sub-buckets) raw, %.3fs submit",
                 s_lo, s_hi, total_strip, nb_buckets, n_subs_log,
-                time.perf_counter() - t_strip,
-                extra={"counts": {"strips": 1, "raw_strips": 1}})
+                time.perf_counter() - t_strip)
+            count("strips")
+            count("raw_strips")
             yielded = True
             yield keys, None, -1, total_strip
             continue
@@ -758,7 +764,8 @@ def _strip_sweep(
             logger.info(
                 "distance strip [%d, %d) overflowed max capacity %d — "
                 "splitting at %d and retrying", s_lo, s_hi,
-                max_capacity, mid, extra={"counts": {"strip_splits": 1}})
+                max_capacity, mid)
+            count("strip_splits")
             work.append((mid, s_hi))
             work.append((s_lo, mid))
             continue
@@ -798,22 +805,21 @@ def _strip_sweep(
                     logger.info(
                         "distance sweep: dedup %.2f observed — "
                         "coalescing %d remaining strips into %d",
-                        dedup_obs[0], len(work), len(merged),
-                        extra={"counts": {
-                            "strips_coalesced": len(work) - len(merged)}})
+                        dedup_obs[0], len(work), len(merged))
+                    count("strips_coalesced", len(work) - len(merged))
                 work[:] = merged[::-1]
         logger.info(
             "distance strip [%d, %d): %d pairs / %d buckets "
             "(%d sub-buckets), %.3fs submit",
             s_lo, s_hi, total_strip, nb_buckets, n_subs_log,
-            time.perf_counter() - t_strip,
-            extra={"counts": {"strips": 1, "table_strips": 1,
-                              "host_planned_strips": int(not devgrid)}})
+            time.perf_counter() - t_strip)
+        count("strips")
+        count("table_strips")
+        count("host_planned_strips", int(not devgrid))
         if acc is not None:
             yielded = True
             yield acc[0], acc[1], None, acc_cap
-    logger.info("distance sweep: host planning %.3fs", plan_s,
-                extra={"seconds": {"sweep_plan": plan_s}})
+    logger.info("distance sweep: host planning %.3fs", plan_s)
     if not yielded:
         yield (torch.full((capacity,), KEY_SENTINEL, dtype=torch.int64,
                           device=device),

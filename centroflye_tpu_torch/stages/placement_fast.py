@@ -55,6 +55,7 @@ from centroflye_tpu_torch.ops import scoring
 from centroflye_tpu_torch.ops.myers import words_tensor
 from centroflye_tpu_torch.stages.cloud_contig import CloudContig
 from centroflye_tpu_torch.stages.kmer_cloud import ReadClouds
+from centroflye_tpu_torch.utils.logging_utils import span
 
 logger = logging.getLogger("centroflye_tpu_torch")
 
@@ -278,89 +279,90 @@ class FastPlacer:
                  reads_clouds: Dict[str, ReadClouds],
                  config: PlacerConfig,
                  use_device_init: bool = True, device="cuda"):
-        t0 = time.perf_counter()
-        self.device = torch.device(device)
-        self.contig = contig
-        self.config = config
-        self.ids: List[str] = list(reads)
-        self.clouds = {r: reads_clouds[r] for r in self.ids}
-        R = len(self.ids)
-        # tie-break rank: smaller r_id (lexicographic) wins at equal
-        # (score, position)
-        order = sorted(range(R), key=lambda i: self.ids[i])
-        self.lex_rank = np.empty(R, np.int64)
-        for rank, i in enumerate(order):
-            self.lex_rank[i] = rank
+        with span("placement_setup"):
+            t0 = time.perf_counter()
+            self.device = torch.device(device)
+            self.contig = contig
+            self.config = config
+            self.ids: List[str] = list(reads)
+            self.clouds = {r: reads_clouds[r] for r in self.ids}
+            R = len(self.ids)
+            # tie-break rank: smaller r_id (lexicographic) wins at equal
+            # (score, position)
+            order = sorted(range(R), key=lambda i: self.ids[i])
+            self.lex_rank = np.empty(R, np.int64)
+            for rank, i in enumerate(order):
+                self.lex_rank[i] = rank
 
-        self.T = max((self.clouds[r].n_units for r in self.ids), default=0)
-        n_kmers = 0
-        for r in self.ids:
-            for c in self.clouds[r].clouds:
-                if len(c):
-                    n_kmers = max(n_kmers, int(c.max()) + 1)
-        if isinstance(contig, ArrayContig):
-            ck, _ = contig.occurrence_arrays()
-            if len(ck):
-                n_kmers = max(n_kmers, int(ck.max()) + 1)
-        else:
-            for kmer in contig.kmer_positions:
-                n_kmers = max(n_kmers, int(kmer) + 1)
-        self.n_kmers = n_kmers
+            self.T = max((self.clouds[r].n_units for r in self.ids), default=0)
+            n_kmers = 0
+            for r in self.ids:
+                for c in self.clouds[r].clouds:
+                    if len(c):
+                        n_kmers = max(n_kmers, int(c.max()) + 1)
+            if isinstance(contig, ArrayContig):
+                ck, _ = contig.occurrence_arrays()
+                if len(ck):
+                    n_kmers = max(n_kmers, int(ck.max()) + 1)
+            else:
+                for kmer in contig.kmer_positions:
+                    n_kmers = max(n_kmers, int(kmer) + 1)
+            self.n_kmers = n_kmers
 
-        # inverted occurrence index: kmer -> (read row, unit t), sorted by
-        # kmer for vectorized lookup
-        occ_k: List[np.ndarray] = []
-        occ_r: List[np.ndarray] = []
-        occ_t: List[np.ndarray] = []
-        for ri, r in enumerate(self.ids):
-            for t, c in enumerate(self.clouds[r].clouds):
-                if len(c):
-                    occ_k.append(c.astype(np.int64))
-                    occ_r.append(np.full(len(c), ri, np.int32))
-                    occ_t.append(np.full(len(c), t, np.int32))
-        if occ_k:
-            k = np.concatenate(occ_k)
-            srt = np.argsort(k, kind="stable")
-            self.occ_kmer = k[srt]
-            self.occ_read = np.concatenate(occ_r)[srt]
-            self.occ_t = np.concatenate(occ_t)[srt]
-        else:
-            self.occ_kmer = np.empty(0, np.int64)
-            self.occ_read = np.empty(0, np.int32)
-            self.occ_t = np.empty(0, np.int32)
+            # inverted occurrence index: kmer -> (read row, unit t), sorted by
+            # kmer for vectorized lookup
+            occ_k: List[np.ndarray] = []
+            occ_r: List[np.ndarray] = []
+            occ_t: List[np.ndarray] = []
+            for ri, r in enumerate(self.ids):
+                for t, c in enumerate(self.clouds[r].clouds):
+                    if len(c):
+                        occ_k.append(c.astype(np.int64))
+                        occ_r.append(np.full(len(c), ri, np.int32))
+                        occ_t.append(np.full(len(c), t, np.int32))
+            if occ_k:
+                k = np.concatenate(occ_k)
+                srt = np.argsort(k, kind="stable")
+                self.occ_kmer = k[srt]
+                self.occ_read = np.concatenate(occ_r)[srt]
+                self.occ_t = np.concatenate(occ_t)[srt]
+            else:
+                self.occ_kmer = np.empty(0, np.int64)
+                self.occ_read = np.empty(0, np.int32)
+                self.occ_t = np.empty(0, np.int32)
 
-        self.P = int(contig.max_pos) + self.T + 2
-        self.S0 = np.zeros((R, self.P), np.int32)
-        self.S1 = np.zeros((R, self.P), np.int32)
-        self.placed = np.zeros(R, bool)
-        # per-cell match-count cache for score0's distinct-t rule:
-        # key (r, o, t) -> processed-pair hits, held as a sorted
-        # (key, value) main table plus a small sorted pending table
-        # (disjoint from main; folded in when it fills) — every probe
-        # and update is a vectorized searchsorted pass, no per-element
-        # Python. Cells absent from both tables fall back to the
-        # initial-snapshot intersection count, precomputed once as a
-        # sorted (key, count) table
-        self._cnt_keys = np.empty(0, np.int64)
-        self._cnt_vals = np.empty(0, np.int64)
-        self._cnt_pkeys = np.empty(0, np.int64)
-        self._cnt_pvals = np.empty(0, np.int64)
-        self._init_sets = _initial_pair_sets(contig)
-        assert self.T < (1 << 20), "unit index overflows cell-key packing"
-        self._base_keys, self._base_vals = self._build_base_counts()
+            self.P = int(contig.max_pos) + self.T + 2
+            self.S0 = np.zeros((R, self.P), np.int32)
+            self.S1 = np.zeros((R, self.P), np.int32)
+            self.placed = np.zeros(R, bool)
+            # per-cell match-count cache for score0's distinct-t rule:
+            # key (r, o, t) -> processed-pair hits, held as a sorted
+            # (key, value) main table plus a small sorted pending table
+            # (disjoint from main; folded in when it fills) — every probe
+            # and update is a vectorized searchsorted pass, no per-element
+            # Python. Cells absent from both tables fall back to the
+            # initial-snapshot intersection count, precomputed once as a
+            # sorted (key, count) table
+            self._cnt_keys = np.empty(0, np.int64)
+            self._cnt_vals = np.empty(0, np.int64)
+            self._cnt_pkeys = np.empty(0, np.int64)
+            self._cnt_pvals = np.empty(0, np.int64)
+            self._init_sets = _initial_pair_sets(contig)
+            assert self.T < (1 << 20), "unit index overflows cell-key packing"
+            self._base_keys, self._base_vals = self._build_base_counts()
 
-        self._row_best_key = np.full(R, _NEG, np.int64)
-        self._row_best_pos = np.full(R, -1, np.int64)
+            self._row_best_key = np.full(R, _NEG, np.int64)
+            self._row_best_pos = np.full(R, -1, np.int64)
 
         t1 = time.perf_counter()
-        self._score_init(use_device_init)
+        with span("placement_scoring"):
+            self._score_init(use_device_init)
         t2 = time.perf_counter()
-        self._rebuild_row_best(np.arange(R))
+        with span("placement_setup"):
+            self._rebuild_row_best(np.arange(R))
         t3 = time.perf_counter()
         logger.info("placement set-up %.3fs, bulk scoring %.3fs (%d reads)",
-                    (t1 - t0) + (t3 - t2), t2 - t1, R, extra={
-                        "seconds": {"placement_setup": (t1 - t0) + (t3 - t2),
-                                    "placement_scoring": t2 - t1}})
+                    (t1 - t0) + (t3 - t2), t2 - t1, R)
 
     # -- initial bulk scoring --------------------------------------------
 
@@ -646,24 +648,25 @@ class FastPlacer:
 
     def run(self) -> Tuple[Dict[str, Optional[int]],
                            Dict[str, Tuple[int, int]]]:
-        t0 = time.perf_counter()
-        placements: Dict[str, Optional[int]] = {}
-        scores: Dict[str, Tuple[int, int]] = {}
-        while not bool(self.placed.all()):
-            best = self.best_candidate()
-            if best is None:
-                for ri, r in enumerate(self.ids):
-                    if not self.placed[ri]:
-                        placements[r] = None
-                break
-            r_id, pos, sc = best
-            placements[r_id] = pos
-            scores[r_id] = sc
-            self.mark_placed(r_id)
-            new_freq = self.contig.add_read(self.clouds[r_id], position=pos)
-            self.apply_pairs(new_freq)
+        with span("placement_greedy"):
+            t0 = time.perf_counter()
+            placements: Dict[str, Optional[int]] = {}
+            scores: Dict[str, Tuple[int, int]] = {}
+            while not bool(self.placed.all()):
+                best = self.best_candidate()
+                if best is None:
+                    for ri, r in enumerate(self.ids):
+                        if not self.placed[ri]:
+                            placements[r] = None
+                    break
+                r_id, pos, sc = best
+                placements[r_id] = pos
+                scores[r_id] = sc
+                self.mark_placed(r_id)
+                new_freq = self.contig.add_read(self.clouds[r_id],
+                                                position=pos)
+                self.apply_pairs(new_freq)
         secs = time.perf_counter() - t0
         logger.info("placement greedy loop %.3fs (%d of %d reads placed)",
-                    secs, len(scores), len(self.ids),
-                    extra={"seconds": {"placement_greedy": secs}})
+                    secs, len(scores), len(self.ids))
         return placements, scores

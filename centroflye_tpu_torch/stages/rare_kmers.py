@@ -31,6 +31,7 @@ from centroflye_tpu_torch.ops.kmers import (
     KEY_SENTINEL, MASK, count_read_kmer_stats, join_keys,
     merge_count_tables, pack_kmers, table_to_numpy,
 )
+from centroflye_tpu_torch.utils.logging_utils import span
 
 logger = logging.getLogger("centroflye_tpu_torch")
 
@@ -239,58 +240,58 @@ def read_kmer_table(
     # occurrence prefilter pass A: hashed window counts over the whole
     # corpus, on the device
     t_start = time.perf_counter()
-    occ_table = None
-    if min_occurrences > 1 and n_dev == 1:
-        occ_table = torch.zeros(1 << _HASH_BITS, dtype=torch.int32,
-                                device=device)
-        for _ids, codes, lens in _iter_batches(seqs, batch_rows, 256):
-            _occ_accumulate(occ_table, *upload(codes, lens), k=k)
-        _sync(device)
+    with span("rare_occ"):
+        occ_table = None
+        if min_occurrences > 1 and n_dev == 1:
+            occ_table = torch.zeros(1 << _HASH_BITS, dtype=torch.int32,
+                                    device=device)
+            for _ids, codes, lens in _iter_batches(seqs, batch_rows, 256):
+                _occ_accumulate(occ_table, *upload(codes, lens), k=k)
+            _sync(device)
     t_occ = time.perf_counter()
 
-    for ids, codes, lens in _iter_batches(seqs, batch_rows, 256):
-        win_b = int(np.maximum(lens.astype(np.int64) - k + 1, 0).sum())
-        if n_dev > 1:
-            shards = (pad_rows(codes, n_dev, 4), pad_rows(lens, n_dev, 0),
-                      pad_rows(ids[:, None], n_dev, 0))
+    with span("rare_count_merge"):
+        for ids, codes, lens in _iter_batches(seqs, batch_rows, 256):
+            win_b = int(np.maximum(lens.astype(np.int64) - k + 1, 0).sum())
+            if n_dev > 1:
+                shards = (pad_rows(codes, n_dev, 4), pad_rows(lens, n_dev, 0),
+                          pad_rows(ids[:, None], n_dev, 0))
 
-            def count(cap, shards=shards):
-                if cap not in steps:
-                    steps[cap] = make_stats_count_step(mesh, k, cap)
-                return steps[cap](*shards)
-            forest.count(count, win_b)
-            continue
-        codes_d, lens_d = upload(codes, lens)
-        if occ_table is not None:
-            keys, n_keep = _occ_mask(occ_table, codes_d, lens_d,
-                                     min_occurrences, k=k)
-            win_b = int(n_keep)        # survivors bound the distinct count
-            if win_b == 0:
+                def count(cap, shards=shards):
+                    if cap not in steps:
+                        steps[cap] = make_stats_count_step(mesh, k, cap)
+                    return steps[cap](*shards)
+                forest.count(count, win_b)
                 continue
-        else:
-            keys = _kmer_keys(codes_d, lens_d, k)
-        rid = torch.from_numpy(ids).to(device)[:, None].expand(keys.shape)
+            codes_d, lens_d = upload(codes, lens)
+            if occ_table is not None:
+                keys, n_keep = _occ_mask(occ_table, codes_d, lens_d,
+                                         min_occurrences, k=k)
+                win_b = int(n_keep)        # survivors bound the distinct count
+                if win_b == 0:
+                    continue
+            else:
+                keys = _kmer_keys(codes_d, lens_d, k)
+            rid = torch.from_numpy(ids).to(device)[:, None].expand(keys.shape)
 
-        def count(cap, keys=keys, rid=rid):
-            ukeys, n_reads, n_multi, n = count_read_kmer_stats(
-                keys, rid, capacity=cap)
-            return ukeys, torch.stack([n_reads, n_multi], dim=1), n
-        forest.count(count, win_b)
+            def count(cap, keys=keys, rid=rid):
+                ukeys, n_reads, n_multi, n = count_read_kmer_stats(
+                    keys, rid, capacity=cap)
+                return ukeys, torch.stack([n_reads, n_multi], dim=1), n
+            forest.count(count, win_b)
 
     t_count = time.perf_counter()
-    acc = forest.fold()
-    if acc is None:
-        return (np.empty(0, np.uint64), np.empty(0, np.int64),
-                np.empty(0, np.int64))
-    codes_u64, counts = table_to_numpy(*acc)
+    with span("rare_readback"):
+        acc = forest.fold()
+        if acc is None:
+            return (np.empty(0, np.uint64), np.empty(0, np.int64),
+                    np.empty(0, np.int64))
+        codes_u64, counts = table_to_numpy(*acc)
     t_end = time.perf_counter()
     logger.info(
         "read_kmer_table phases: occ-prefilter %.3fs, count+merge %.3fs, "
         "fold+readback %.3fs (%d distinct)", t_occ - t_start,
-        t_count - t_occ, t_end - t_count, len(codes_u64),
-        extra={"seconds": {"rare_occ": t_occ - t_start,
-                           "rare_count_merge": t_count - t_occ,
-                           "rare_readback": t_end - t_count}})
+        t_count - t_occ, t_end - t_count, len(codes_u64))
     return codes_u64, counts[:, 0].astype(np.int64), \
         counts[:, 1].astype(np.int64)
 

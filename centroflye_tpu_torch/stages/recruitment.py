@@ -40,6 +40,18 @@ prefiltered set equal to the exact tier's shows.
 `recruit_file(..., distributed=True)` shards the read stream over the
 processes of a gloo group (parallel/distributed) and merges their
 partial files on process 0.
+
+Under `utils/logging_utils.recording`, `run()` records the self time of
+its phases as spans: `engine.fill` (a read's segments into the batches,
+and the exact-tier rows with N), `engine.prescan` (the host prescan, with
+`pack_2bit` on the numpy fill), `engine.route` (the per-row routing after
+the prescan and the per-row resolve loops after a readback),
+`engine.launch` (a device tier's call: uploads and kernel enqueue) and
+`engine.wait` (a readback that waits for the card); and the counters
+`engine.prescan_rows` and `engine.candidate_rows` (the rows passed to the
+fused step). `recruit_file` adds `engine.init` (the engine's build),
+`engine.read` (each step of the reader) and `engine.write` (a recruited
+read's decode and write).
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from centroflye_tpu_torch.io.encoding import PAD, decode, encode, revcomp
 from centroflye_tpu_torch.ops.myers import build_peq, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import recruit_distances
 from centroflye_tpu_torch.parallel.mesh import resolve_mesh
+from centroflye_tpu_torch.utils.logging_utils import count, span
 
 
 @dataclasses.dataclass
@@ -266,7 +279,8 @@ class RecruitmentEngine:
             if not seg_read:
                 return
             rows = len(seg_read)
-            df, dr = self.distances(seg_codes, seg_lens)
+            with span("engine.launch"):
+                df, dr = self.distances(seg_codes, seg_lens)
             inflight.append((df, dr, list(seg_read), rows))
             seg_codes = np.full((B, SEG), PAD, dtype=np.int8)
             seg_lens = np.zeros((B,), dtype=np.int32)
@@ -284,32 +298,35 @@ class RecruitmentEngine:
             from centroflye_tpu_torch.ops.seed_filter import (
                 host_prescan_hits)
             rows = len(f_read)
-            if native_fill:
-                # packed in place at the fill; N rows never entered
-                packed, n_rows = f_packed[:rows], None
-            else:
-                from centroflye_tpu_torch.ops.fused_recruit import (
-                    pack_2bit)
-                f_lens[rows:] = 0        # stale recycled rows: ignore
-                packed, n_mask = pack_2bit(f_codes, f_lens)
-                packed = packed[:rows]
-                n_rows = (n_mask.any(axis=1) if n_mask is not None
-                          else None)
-            hits_a = host_prescan_hits(packed, f_lens[:rows],
-                                       self._bitmap_le_host,
-                                       k=self.config.seed_k)
-            for row, ridx in enumerate(f_read):
-                if n_rows is not None and n_rows[row]:
-                    enqueue_myers(f_codes[row], int(f_lens[row]), ridx)
-                elif not hits_a[row]:
-                    resolve(ridx, self.m, self.m)
+            count("engine.prescan_rows", rows)
+            with span("engine.prescan"):
+                if native_fill:
+                    # packed in place at the fill; N rows never entered
+                    packed, n_rows = f_packed[:rows], None
                 else:
-                    crow = len(c_read)
-                    c_packed[crow] = packed[row]
-                    c_lens[crow] = f_lens[row]
-                    c_read.append(ridx)
-                    if len(c_read) == B_c:
-                        flush_cands()
+                    from centroflye_tpu_torch.ops.fused_recruit import (
+                        pack_2bit)
+                    f_lens[rows:] = 0        # stale recycled rows: ignore
+                    packed, n_mask = pack_2bit(f_codes, f_lens)
+                    packed = packed[:rows]
+                    n_rows = (n_mask.any(axis=1) if n_mask is not None
+                              else None)
+                hits_a = host_prescan_hits(packed, f_lens[:rows],
+                                           self._bitmap_le_host,
+                                           k=self.config.seed_k)
+            with span("engine.route"):
+                for row, ridx in enumerate(f_read):
+                    if n_rows is not None and n_rows[row]:
+                        enqueue_myers(f_codes[row], int(f_lens[row]), ridx)
+                    elif not hits_a[row]:
+                        resolve(ridx, self.m, self.m)
+                    else:
+                        crow = len(c_read)
+                        c_packed[crow] = packed[row]
+                        c_lens[crow] = f_lens[row]
+                        c_read.append(ridx)
+                        if len(c_read) == B_c:
+                            flush_cands()
             f_read = []
 
         def flush_cands():
@@ -320,8 +337,10 @@ class RecruitmentEngine:
             if not c_read:
                 return
             rows = len(c_read)
-            c_lens[rows:] = 0            # stale recycled rows: ignore
-            bundle = self._fused.raw(c_packed, None, c_lens)
+            count("engine.candidate_rows", rows)
+            with span("engine.launch"):
+                c_lens[rows:] = 0            # stale recycled rows: ignore
+                bundle = self._fused.raw(c_packed, None, c_lens)
             f_inflight.append((bundle, c_read, c_packed, c_lens))
             if cand_bufs:
                 c_packed, c_lens = cand_bufs.pop()
@@ -337,30 +356,35 @@ class RecruitmentEngine:
             survivor budget goes to the exact tier (candidate rows hold no
             N, so the host unpack is exact)."""
             bundle, rows_map, packed_snap, lens_snap = f_inflight.pop(0)
-            df, dr, hits, n_pass = self._fused.unbundle(
-                bundle.cpu().numpy(), lens_snap.shape[0])
-            if n_pass <= self.k_budget:
-                for row, ridx in enumerate(rows_map):
-                    resolve(ridx, int(df[row]), int(dr[row]))
-            else:
-                from centroflye_tpu_torch.ops.fused_recruit import (
-                    unpack_2bit_host)
-                codes_snap = unpack_2bit_host(packed_snap)
-                for row, ridx in enumerate(rows_map):
-                    # the fused filter's threshold, scaled to its stride
-                    if int(hits[row]) >= self._fused.min_hits:
-                        enqueue_myers(codes_snap[row], int(lens_snap[row]),
-                                      ridx)
-                    else:
-                        resolve(ridx, self.m, self.m)
+            with span("engine.wait"):
+                bundle = bundle.cpu().numpy()
+            with span("engine.route"):
+                df, dr, hits, n_pass = self._fused.unbundle(
+                    bundle, lens_snap.shape[0])
+                if n_pass <= self.k_budget:
+                    for row, ridx in enumerate(rows_map):
+                        resolve(ridx, int(df[row]), int(dr[row]))
+                else:
+                    from centroflye_tpu_torch.ops.fused_recruit import (
+                        unpack_2bit_host)
+                    codes_snap = unpack_2bit_host(packed_snap)
+                    for row, ridx in enumerate(rows_map):
+                        # the fused filter's threshold, scaled to its stride
+                        if int(hits[row]) >= self._fused.min_hits:
+                            enqueue_myers(codes_snap[row],
+                                          int(lens_snap[row]), ridx)
+                        else:
+                            resolve(ridx, self.m, self.m)
             cand_bufs.append((packed_snap, lens_snap))
 
         def drain_one():
             df, dr, rows_map, rows = inflight.pop(0)
-            df = df.cpu().numpy()[:rows]
-            dr = dr.cpu().numpy()[:rows]
-            for row, ridx in enumerate(rows_map):
-                resolve(ridx, int(df[row]), int(dr[row]))
+            with span("engine.wait"):
+                df = df.cpu().numpy()[:rows]
+                dr = dr.cpu().numpy()[:rows]
+            with span("engine.route"):
+                for row, ridx in enumerate(rows_map):
+                    resolve(ridx, int(df[row]), int(dr[row]))
 
         def emit_ready():
             nonlocal next_emit
@@ -390,18 +414,22 @@ class RecruitmentEngine:
                 return
             from centroflye_tpu_torch.parallel.seq_parallel import (
                 myers_distance_seqparallel)
-            Lmax = max(len(c) for _, c in long_batch)
-            Lb = -(-Lmax // SEG) * SEG      # columns bucketed to seg_len
-            text = np.full((len(long_batch), Lb), PAD, np.int8)
-            lens_l = np.zeros((len(long_batch),), np.int32)
-            for i, (_, c) in enumerate(long_batch):
-                text[i, :len(c)] = c
-                lens_l[i] = len(c)
-            out_f, out_r = (myers_distance_seqparallel(
-                peq, text, lens_l, m=self.m, mesh=self.mesh,
-                axis=self.mesh.axis) for peq in (self.peq_fwd, self.peq_rc))
-            for i, (ridx, _) in enumerate(long_batch):
-                resolve(ridx, int(out_f["dist"][i]), int(out_r["dist"][i]))
+            with span("engine.launch"):
+                Lmax = max(len(c) for _, c in long_batch)
+                Lb = -(-Lmax // SEG) * SEG  # columns bucketed to seg_len
+                text = np.full((len(long_batch), Lb), PAD, np.int8)
+                lens_l = np.zeros((len(long_batch),), np.int32)
+                for i, (_, c) in enumerate(long_batch):
+                    text[i, :len(c)] = c
+                    lens_l[i] = len(c)
+                out_f, out_r = (myers_distance_seqparallel(
+                    peq, text, lens_l, m=self.m, mesh=self.mesh,
+                    axis=self.mesh.axis)
+                    for peq in (self.peq_fwd, self.peq_rc))
+            with span("engine.route"):
+                for i, (ridx, _) in enumerate(long_batch):
+                    resolve(ridx, int(out_f["dist"][i]),
+                            int(out_r["dist"][i]))
             long_batch = []
 
         def force_drain():
@@ -415,11 +443,9 @@ class RecruitmentEngine:
                 drain_one()
             flush_seqpar()
 
-        read_idx = 0
-        for r_id, seq in reads:
-            if read_idx - next_emit > LAG_LIMIT:
-                force_drain()
-                yield from emit_ready()
+        def fill(read_idx, r_id, seq) -> bool:
+            """One read's segments into the tiers' batches: -> whether a
+            batch went out, so that results may be ready to emit."""
             if native_fill and not isinstance(seq, np.ndarray):
                 raw = seq.encode("ascii")    # rows pack from the ASCII
                 codes = None
@@ -434,12 +460,12 @@ class RecruitmentEngine:
                 long_batch.append((read_idx, np.asarray(c, np.int8)))
                 if len(long_batch) >= LB:
                     flush_seqpar()
-                    yield from emit_ready()
-                read_idx += 1
-                continue
+                    return True
+                return False
             starts = segment_starts(n_len, SEG, self.overlap)
             pending[read_idx] = [r_id, len(starts), self.m, self.m]
             order.append(read_idx)
+            flushed = False
             for st in starts:
                 ln = min(SEG, n_len - st)
                 if native_fill:
@@ -462,7 +488,7 @@ class RecruitmentEngine:
                         f_read.append(read_idx)
                         if len(f_read) == B_f:
                             flush_prescan()
-                            yield from emit_ready()
+                            flushed = True
                 elif prefilter:
                     row = len(f_read)
                     f_codes[row, :ln] = codes[st:st + SEG]
@@ -471,10 +497,21 @@ class RecruitmentEngine:
                     f_read.append(read_idx)
                     if len(f_read) == B_f:
                         flush_prescan()
-                        yield from emit_ready()
+                        flushed = True
                 else:
                     enqueue_myers(codes[st:st + SEG], ln, read_idx)
-                    yield from emit_ready()
+                    flushed = True
+            return flushed
+
+        read_idx = 0
+        for r_id, seq in reads:
+            if read_idx - next_emit > LAG_LIMIT:
+                force_drain()
+                yield from emit_ready()
+            with span("engine.fill"):
+                flushed = fill(read_idx, r_id, seq)
+            if flushed:
+                yield from emit_ready()
             read_idx += 1
         flush_seqpar()
         if prefilter:
@@ -518,25 +555,33 @@ def recruit_file(unit_fn: str, reads_fn: str, output_fn: str,
     from centroflye_tpu_torch.native import native_iter_seqs
 
     unit = read_seq(unit_fn)
-    engine = RecruitmentEngine(
-        unit, RecruitmentConfig(threshold=threshold, batch_size=batch_size),
-        seg_len=seg_len, device=device, mesh=mesh)
+    with span("engine.init"):
+        engine = RecruitmentEngine(
+            unit, RecruitmentConfig(threshold=threshold,
+                                    batch_size=batch_size),
+            seg_len=seg_len, device=device, mesh=mesh)
 
     # sequences are held only while their decision is pending, keyed by
     # input position, not id: duplicate ids stream through like rr's
     pending_seqs: collections.deque = collections.deque()
 
     def reads_iter():
-        for r_id, codes in native_iter_seqs(reads_fn):
-            pending_seqs.append(codes)
-            yield r_id, codes
+        records = iter(native_iter_seqs(reads_fn))
+        while True:
+            with span("engine.read"):
+                record = next(records, None)
+            if record is None:
+                return
+            pending_seqs.append(record[1])
+            yield record
 
     n_recruited = 0
     with atomic_write(output_fn) as out:
         for res in engine.run(reads_iter()):
             codes = pending_seqs.popleft()
             if res.recruited:
-                out.write(f">{res.r_id}\n{decode(codes)}\n")
+                with span("engine.write"):
+                    out.write(f">{res.r_id}\n{decode(codes)}\n")
                 n_recruited += 1
     return n_recruited
 

@@ -101,7 +101,6 @@ import dataclasses
 import gzip
 import hashlib
 import json
-import logging
 import os
 import subprocess
 import sys
@@ -161,6 +160,7 @@ from centroflye_tpu_torch.stages.unit_decomposition import (DecompRecord,
 from centroflye_tpu_torch.stages.recruitment import (RecruitmentEngine,
                                                      recruit_file,
                                                      segment_starts)
+from centroflye_tpu_torch.utils.logging_utils import Recording, recording
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 UNIT_FASTA = os.path.join(DATA_DIR, "DXZ1_rc.fasta")
@@ -1263,18 +1263,24 @@ def make_world(unit, n_units, seed=WORLD_SEED):
                  true_bounds)
 
 
-class PhaseLog(logging.Handler):
-    """Sums the `seconds` and `counts` that the port's stage-3 modules
-    log with their phase records."""
+class PhaseLog(Recording):
+    """A recording of the spans and counters of the port's stage-3 and
+    stage-4 modules. `sums`: each span's seconds and each counter's
+    total by name. A span records its self time, so "rare" and "sweep"
+    get the spans inside them added back: both are printed whole, as
+    their phases' wall seconds."""
 
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.sums = {}
+    WHOLE = {"rare": ("rare_occ", "rare_count_merge", "rare_readback"),
+             "sweep": ("sweep_plan",)}
 
-    def emit(self, record):
-        for key in ("seconds", "counts"):
-            for k, v in getattr(record, key, {}).items():
-                self.sums[k] = self.sums.get(k, 0) + v
+    @property
+    def sums(self) -> dict:
+        out = {k: self.seconds(k) for k in self.spans}
+        out.update(self.counters)
+        for k, inner in self.WHOLE.items():
+            if k in out:
+                out[k] += sum(out.get(i, 0.0) for i in inner)
+        return out
 
 
 def read_artifacts(outdir, c):
@@ -1365,17 +1371,14 @@ def phase_unique_kmers(unit, dev, world, world_s, boundary_dec, outdir):
     full world's result and its Decomposition, for phase placement."""
     t0 = time.perf_counter()
     cfg = KmerRecruitmentConfig()
-    log = PhaseLog()
-    logger = logging.getLogger("centroflye_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.addHandler(log)
 
     def run(dec, d, outdir):
-        log.sums.clear()
+        log = PhaseLog()
         t = time.perf_counter()
-        res = run_unique_kmers(dec, cfg, COVERAGE, outdir, device=d)
+        with recording(log):
+            res = run_unique_kmers(dec, cfg, COVERAGE, outdir, device=d)
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t, dict(log.sums)
+        return res, time.perf_counter() - t, log.sums
 
     def sizes(res, sums):
         check(len(res.codes) > 0 and np.isin(res.codes, res.rare).all(),
@@ -1411,10 +1414,12 @@ def phase_unique_kmers(unit, dev, world, world_s, boundary_dec, outdir):
     for name, kw in CUT_SWEEPS.items():
         got, secs = [], {}
         for where, d in (("cpu", "cpu"), ("card", dev)):
-            log.sums.clear()
+            log = PhaseLog()
             t = time.perf_counter()
-            got.append(recruit_unique_kmers(
-                card.clouds, card.n_units, card.rare, cfg, device=d, **kw))
+            with recording(log):
+                got.append(recruit_unique_kmers(
+                    card.clouds, card.n_units, card.rare, cfg, device=d,
+                    **kw))
             secs[f"{where}_seconds"] = time.perf_counter() - t
         for codes, e in got:
             check(np.array_equal(codes, card.codes) and all(
@@ -1436,7 +1441,6 @@ def phase_unique_kmers(unit, dev, world, world_s, boundary_dec, outdir):
                            f"unique_kmers_min_edge_cov_"
                            f"{cfg.min_coverage}.txt")) as f:
         from_file = [string_to_kmer_code(ln.strip()) for ln in f]
-    logger.removeHandler(log)
     check(from_file == res.codes.tolist(),
           "full world: the k-mer artifact differs from the result")
     t = time.perf_counter()
@@ -1685,25 +1689,23 @@ def phase_placement(world, dec, res, dev, outdir,
     t0 = time.perf_counter()
     pcfg, kcfg = PlacerConfig(), KmerRecruitmentConfig()
     log = PhaseLog()
-    logger = logging.getLogger("centroflye_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.addHandler(log)
     calls = []
     torch.cuda.reset_peak_memory_stats()
-    with recorded_scoring(calls):
+    with recorded_scoring(calls), recording(log):
         t = time.perf_counter()
         placements, clouds = run_placement(dec, res.codes, pcfg, kcfg.k,
                                            outdir, device=dev)
         torch.cuda.synchronize()
         place_s = time.perf_counter() - t
     t = time.perf_counter()
-    agree = run_placement_validation(placements, clouds, pcfg, kcfg, outdir)
+    with recording(log):
+        agree = run_placement_validation(placements, clouds, pcfg, kcfg,
+                                         outdir)
     valid_s = time.perf_counter() - t
     pos_fn = os.path.join(outdir, "tr_resolution", "read_positions.csv")
     from_file = read_positions_file(pos_fn)
     digest = sha256_of(pos_fn)
     peak = torch.cuda.max_memory_allocated()
-    logger.removeHandler(log)
     sums = log.sums
     check(from_file == placements,
           "read_positions.csv differs from the placements")
@@ -2461,8 +2463,12 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     time on a sample of steps, and the peak device memory. K1 on one of
     recruitment's fused steps must equal its plain version
     (`hold_fused_k1`, m = 3222). Returns the launches, K1's instance, the
-    SDReport and the phase's line."""
+    SDReport and the phase's line. Recruitment and the decomposition run
+    under a recording of the port's spans and counters, and the line
+    gives each `engine.` and `decomposer.` span's self seconds and each
+    counter; the decomposer's steps must equal K4's launches."""
     t0 = time.perf_counter()
+    program = Recording()
     reads_fn = os.path.join(outdir, "reads.fasta")
     cen_fn = os.path.join(outdir, "cen_reads.fasta")
     seqs = dict(world.reads)
@@ -2476,7 +2482,7 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     torch.cuda.reset_peak_memory_stats()
     seconds = {}
     t = time.perf_counter()
-    with captured_fused_k1() as captured:
+    with captured_fused_k1() as captured, recording(program):
         n_rec = recruit_file(D6Z1_FASTA, reads_fn, cen_fn, CEN6_THRESHOLD,
                              device=dev)
     torch.cuda.synchronize()
@@ -2523,7 +2529,8 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     parallel_mesh.myers_perrow = timed_perrow
     t = time.perf_counter()
     try:
-        sd = pipe.decompose(world.monomers, recruited)
+        with recording(program):
+            sd = pipe.decompose(world.monomers, recruited)
     finally:
         parallel_mesh.myers_perrow = perrow
     torch.cuda.synchronize()
@@ -2594,6 +2601,9 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
                (e / n for e, n in units), default=0.0),
            "scaffold_bp": [len(s) for s in asm.scaffolds_nucl],
            "stage_seconds": seconds, "run_seconds": run_s,
+           "program_seconds": {k: program.seconds(k)
+                               for k in sorted(program.spans)},
+           "program_counts": dict(program.counters),
            "check_seconds": time.perf_counter() - t,
            "max_memory_allocated": peak, "sha256": digests,
            "equal_jax": {k: None if w is None else digests[k] == w
@@ -2602,6 +2612,9 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     emit(out)
     check(launches["k1"] > 0, "cen6 recruitment launched K1 no time")
     check(launches["k4"] > 0, "the cen6 decomposition launched K4 no time")
+    check(program.counters["decomposer.steps"] == launches["k4"],
+          f"{program.counters['decomposer.steps']} decomposer steps for "
+          f"{launches['k4']} K4 launches")
     check(first_steps == batches and len(steps) == launches["k4"],
           f"{first_steps} first steps (HW/all) for {batches} lockstep "
           f"batches of {len(recruited)} reads")
