@@ -4,11 +4,18 @@ two-strand Myers on the survivors, one device call per candidate batch.
 Counterpart of the JAX package's `ops/fused_recruit.py`: the host uploads
 base codes packed 4 per byte (plus an N bitmask, 8 per byte, when a row
 holds an in-range N); the device counts sampled unit seed hits, moves the
-passing rows to the front (stable argsort of the fail flag), scores only
-the first `k_budget` rows with `ops/myers_cuda.recruit_distances` (the
-CUDA kernel on the card), and scatters the distances back to row order,
-sentinel m for filtered rows. The host receives one bundled int32 array
-[df | dr | hits | n_pass] and handles n_pass > k_budget (overflow) itself.
+passing rows to the front (stable argsort of the fail flag) and scores
+the passing rows among the first `k_budget`, sentinel m for the others.
+The host receives one bundled int32 array [df | dr | hits | n_pass] and
+handles n_pass > k_budget (overflow) itself.
+
+The scorer differs by device and gives the same bundle:
+- on the card, one launch of `ops/myers_cuda.myers_hw_chunks` reads the
+  packed rows in place and scores only the passing rows, each in column
+  chunks side by side, straight into the bundle; n_pass stays on the card;
+- on the CPU, the first `k_budget` rows of the order are unpacked and
+  scored whole (`ops/myers_cuda.recruit_distances`, the plain version),
+  and the distances scattered back to row order.
 
 Two filter paths, as in the JAX package:
 - packed (no mask, an LE-keyed bitmap, seed_k <= 16, stride 1/2/4): seed
@@ -29,8 +36,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from centroflye_tpu_torch.ops.myers import MASK
-from centroflye_tpu_torch.ops.myers_cuda import recruit_distances
+from centroflye_tpu_torch.ops.myers import MASK, int32_words
+from centroflye_tpu_torch.ops.myers_cuda import (myers_hw_chunks,
+                                                 recruit_distances)
 from centroflye_tpu_torch.ops.seed_filter import seed_hit_counts_bitmap
 from centroflye_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
@@ -123,7 +131,8 @@ def make_fused_recruit(seed_bitmap: torch.Tensor,
     n_dev = mesh.size
     per_device = list(zip(*(
         replicate(mesh, t) if t is not None else (None,) * n_dev
-        for t in (seed_bitmap, peq_fwd, peq_rc, seed_bitmap_le))))
+        for t in (seed_bitmap, peq_fwd, peq_rc, seed_bitmap_le,
+                  int32_words(peq_fwd), int32_words(peq_rc)))))
 
     def fused_raw(packed, n_mask, lens):
         """Returns the bundle without waiting for it: the shards' blocks
@@ -157,12 +166,32 @@ def make_fused_recruit(seed_bitmap: torch.Tensor,
     return fused_unbundled
 
 
+def score_chunked(words_f, words_r, packed, n_mask, lens, hits, *, m: int,
+                  min_hits: int, k_budget: int) -> torch.Tensor:
+    """The card's survivor scoring: the bundle [df, dr, hits, n_pass] of
+    one shard from its hit counts (words_f, words_r: the unit's and its
+    reverse complement's peqs as int32 words), with df and dr from one
+    `myers_hw_chunks` launch over the passing rows among the first
+    k_budget of the pass order, m elsewhere; nothing is read back. On CPU
+    tensors the launch is the kernel's plain version."""
+    B = hits.shape[0]
+    fail = hits < min_hits
+    order = torch.argsort(fail.to(torch.int32), stable=True)  # pass first
+    n_pass = (~fail).sum(dtype=torch.int32).reshape(1)
+    out = torch.cat([torch.full((2 * B,), m, dtype=torch.int32,
+                                device=hits.device), hits, n_pass])
+    myers_hw_chunks(words_f, words_r, packed, n_mask, lens.to(torch.int32),
+                    order[:k_budget], out[3 * B:], out[:B], out[B:2 * B],
+                    m=m)
+    return out
+
+
 def _fused_body(tables, packed, n_mask, lens, *, m, seed_k, min_hits,
                 k_budget, stride, packed_path_ok):
     """One device's fused step on its own tables (seed_bitmap, peq_fwd,
-    peq_rc, seed_bitmap_le) and rows -> the bundle [df, dr, hits,
-    n_pass]."""
-    seed_bitmap, peq_fwd, peq_rc, seed_bitmap_le = tables
+    peq_rc, seed_bitmap_le, and the peqs as int32 words) and rows -> the
+    bundle [df, dr, hits, n_pass]."""
+    seed_bitmap, peq_fwd, peq_rc, seed_bitmap_le, words_f, words_r = tables
     kmask = (1 << (2 * seed_k)) - 1
 
     def packed_hits(W, Wn, lens, offsets):
@@ -186,7 +215,11 @@ def _fused_body(tables, packed, n_mask, lens, *, m, seed_k, min_hits,
 
     def score_survivors(hits, survivor_codes):
         """Compaction, scoring and scatter shared by both filter paths:
-        survivor_codes(top) gives the (kb, L) int8 codes of rows `top`."""
+        survivor_codes(top) gives the (kb, L) int8 codes of rows `top`.
+        On the card, `score_chunked` on the packed rows instead."""
+        if hits.device.type == "cuda":
+            return score_chunked(words_f, words_r, packed, n_mask, lens, hits,
+                                 m=m, min_hits=min_hits, k_budget=k_budget)
         B = hits.shape[0]
         fail = hits < min_hits
         order = torch.argsort(fail.to(torch.int32), stable=True)  # pass first

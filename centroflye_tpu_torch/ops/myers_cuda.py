@@ -8,6 +8,7 @@
 | `myers_hw_v3_banded` | `csrc/myers_hw_banded.cu` | `myers_hw_pallas_v3_banded` |
 | `myers_perrow` (K4) | `csrc/myers_perrow.cu` | `ops/myers.py::myers_distance_batch` with per-row queries (a `jnp` scan, no Pallas kernel) |
 | `myers_carry` (K5) | `csrc/myers_carry.cu` | `parallel/seq_parallel.py`'s chunk_scan (a `jnp` scan, no Pallas kernel) |
+| `myers_hw_chunks` (K1c) | `csrc/myers_hw_chunks.cu` | none (the fused step's survivors, which `myers_hw_pallas_v3_2strand` scores whole) |
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in its `launches` attribute, and by card in `launches_by_device` (card
@@ -32,6 +33,12 @@ call on the card (the query of least dist / m and its row's dist and
 end) or in HW mode collecting the score after every column. Its query
 set (`perrow_queries`) is checked and laid out once, not at every step.
 
+K1c, `myers_hw_chunks`, is the fused recruitment step's survivor scorer:
+two strands, like K1, but only the rows that passed the seed filter
+(their count read on the card), straight from the 2-bit packed rows, each
+row's columns in exact chunks (`chunk_windows`) swept side by side, the
+chunk minima combined into the caller's distance arrays.
+
 K5, `myers_carry`, runs one chunk of text columns for B rows from a
 carried DP state (`ops/myers.CarryState`) and returns the new state: the
 sequence-parallel tier's step (`parallel/seq_parallel.py`), in HW, SHW
@@ -49,7 +56,7 @@ import torch
 
 from centroflye_tpu_torch.ops._build import load_library
 from centroflye_tpu_torch.ops.myers import (
-    CarryState, int32_words, myers_carry_plain, myers_distance_batch,
+    MASK, CarryState, int32_words, myers_carry_plain, myers_distance_batch,
     n_words)
 
 MAX_WORDS = 4 * 32      # m <= 4096
@@ -453,6 +460,159 @@ def recruit_distances(peq_fwd, peq_rc, codes, lens, *, m: int):
     return out["dist_f"], out["dist_r"]
 
 
+CHUNK_ALIGN = 16    # chunk starts, in columns: whole bytes of an N mask
+CHUNK_MIN = 1024    # the narrowest chunk, in columns: the fastest at 1-4 rows
+CARD_SMS = 132      # the H100's SMs: the plain version's grid
+# blocks an SM in `myers_hw_chunks`'s grid: of 1, 2, 3, 4 and 6 on the
+# H100 at 1 to 128 passing rows of DXZ1, 2 was the fastest, or tied, at
+# every count (PERF.md)
+CHUNK_BLOCKS_PER_SM = 2
+
+
+def chunk_blocks(device) -> int:
+    """The grid of `myers_hw_chunks` on `device`: CHUNK_BLOCKS_PER_SM
+    blocks an SM of the card (for the CPU's plain version, the H100's)."""
+    device = torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else CARD_SMS)
+    return sms * CHUNK_BLOCKS_PER_SM
+
+
+def chunk_windows(n: int, m: int, C: int) -> list:
+    """The column windows [(start, stop)] that `myers_hw_chunks` sweeps
+    for a row of n columns at chunk width C: one, [0, n), when n <= C +
+    2m - 1; else chunk c0 = 0, C, 2C, ... owns [c0, min(n, c0 + C)) and
+    is swept from 2m - 1 columns earlier (rounded down to CHUNK_ALIGN, at
+    least 0). An HW alignment of cost at most m spans at most 2m columns,
+    so each chunk holds the exact score on the columns it owns and at
+    least the true score on the others: the least of the windows'
+    distances is the row's."""
+    warm = 2 * m - 1
+    if n <= C + warm:
+        return [(0, n)]
+    return [(max(0, c0 - warm) // CHUNK_ALIGN * CHUNK_ALIGN, min(n, c0 + C))
+            for c0 in range(0, n, C)]
+
+
+def chunk_columns(m: int, L: int, rows: int, blocks: int) -> int:
+    """C, the chunk width `myers_hw_chunks` takes for `rows` passing rows
+    of L columns on a grid of `blocks` (the kernel decides it on the
+    card, from n_pass): the least of CHUNK_MIN, 2 CHUNK_MIN, 4 CHUNK_MIN,
+    ... whose chunks of all rows number at most `blocks`, or that cuts a
+    row into at most two."""
+    C = CHUNK_MIN
+    while (rows * len(chunk_windows(L, m, C)) > blocks
+           and len(chunk_windows(L, m, C)) > 2):
+        C *= 2
+    return C
+
+
+def _check_chunks(words_f, words_r, packed, n_mask, lens, top, n_pass,
+                  dist_f, dist_r, m: int, C: int):
+    """Validates a `myers_hw_chunks` call -> (W, Lq, B, K)."""
+    dev = packed.device
+    W = n_words(m)
+    if m < 1 or W > MAX_WORDS:
+        raise ValueError(f"m={m}: the kernels take 1 <= m <= "
+                         f"{32 * MAX_WORDS}")
+    if C < CHUNK_ALIGN or C % CHUNK_ALIGN:
+        raise ValueError(f"C={C}: a multiple of {CHUNK_ALIGN}")
+    if packed.dim() != 2 or packed.shape[1] % 2:
+        raise ValueError(f"packed must be (B, Lq), Lq even, got "
+                         f"{tuple(packed.shape)}")
+    B, Lq = packed.shape
+    K = top.numel()
+    _check("packed", packed, torch.uint8, (B, Lq), dev)
+    if n_mask is not None:
+        _check("n_mask", n_mask, torch.uint8, (B, Lq // 2), dev)
+    for name, words in (("words_f", words_f), ("words_r", words_r)):
+        _check(name, words, torch.int32, (5, W), dev)
+    _check("lens", lens, torch.int32, (B,), dev)
+    _check("top", top, torch.int64, (K,), dev)
+    _check("n_pass", n_pass, torch.int32, (1,), dev)
+    for name, d in (("dist_f", dist_f), ("dist_r", dist_r)):
+        _check(name, d, torch.int32, (B,), dev)
+    if K > B:
+        raise ValueError(f"top holds {K} rows of a batch of {B}")
+    return W, Lq, B, K
+
+
+def myers_hw_chunks_plain(words_f, words_r, packed, n_mask, lens, top,
+                          n_pass, dist_f, dist_r, *, m: int, C=None):
+    """Plain PyTorch version of `myers_hw_chunks`, same arguments: the
+    rows' `chunk_windows` at the kernel's chunk width through
+    `myers_hw_2strand_plain` (every window of every row in one call),
+    each window's distance lowering its row's entry as the kernel's
+    atomicMin does."""
+    from centroflye_tpu_torch.ops.fused_recruit import (_unpack_2bit,
+                                                        _unpack_nomask)
+    B, Lq = packed.shape
+    rows = top[:min(int(n_pass.reshape(-1)[0]), top.numel())].tolist()
+    if C is None:
+        C = chunk_columns(m, 4 * Lq, len(rows), chunk_blocks("cpu"))
+    spans = [(r, c0, c1) for r in rows
+             for c0, c1 in chunk_windows(min(int(lens[r]), 4 * Lq), m, C)]
+    if not spans:
+        return
+    codes = (_unpack_nomask(packed) if n_mask is None
+             else _unpack_2bit(packed, n_mask))
+    width = max(c1 - c0 for _, c0, c1 in spans)
+    text = torch.full((width, len(spans)), 4, dtype=torch.int8)
+    for s, (r, c0, c1) in enumerate(spans):
+        text[:c1 - c0, s] = codes[r, c0:c1]
+    n = torch.tensor([c1 - c0 for _, c0, c1 in spans], dtype=torch.int32)
+    got = myers_hw_2strand_plain(words_f.long() & MASK,
+                                 words_r.long() & MASK, text, n, m=m)
+    idx = torch.tensor([r for r, _, _ in spans], dtype=torch.int64)
+    for d, key in ((dist_f, "dist_f"), (dist_r, "dist_r")):
+        d.scatter_reduce_(0, idx, got[key].to(d.dtype), reduce="amin")
+
+
+def myers_hw_chunks(words_f, words_r, packed, n_mask, lens, top, n_pass,
+                    dist_f, dist_r, *, m: int, C=None):
+    """The fused recruitment step's survivor scorer: lowers dist_f[r] and
+    dist_r[r] to the HW distance of the unit (words_f) and of its reverse
+    complement (words_r) in row r of `packed`, for r = top[i], i < min(
+    n_pass[0], len(top)), reading n_pass on the card (no readback). Each
+    row's columns run in `chunk_windows` side by side, at the chunk width
+    `chunk_columns` gives for that many rows (decided on the card), or
+    at `C` if given; the caller sets the entries to m first, and the
+    others are left as they are.
+
+    words_f, words_r: (5, W) int32 peq words (`ops/myers.int32_words`,
+    converted once by the caller, not at every launch); packed: (B, Lq)
+    uint8, 4 bases a byte (`fused_recruit.pack_2bit`); n_mask: (B, Lq /
+    2) uint8 N flags or None; lens: (B,) int32 (columns at or past lens
+    do not count);
+    top: (K,) int64 row indices, K <= B; n_pass: (1,) int32; dist_f,
+    dist_r: (B,) int32, written in place. CPU tensors: the plain
+    version."""
+    args = (words_f, words_r, packed, n_mask, lens, top, n_pass, dist_f,
+            dist_r)
+    W, Lq, B, K = _check_chunks(*args, m, CHUNK_MIN if C is None else C)
+    dev = packed.device
+    if dev.type == "cpu":
+        return myers_hw_chunks_plain(*args, m=m, C=C)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cf_myers_hw_chunks(
+            words_f.data_ptr(), words_r.data_ptr(), packed.data_ptr(),
+            None if n_mask is None else n_mask.data_ptr(), lens.data_ptr(),
+            top.data_ptr(), n_pass.data_ptr(), dist_f.data_ptr(),
+            dist_r.data_ptr(), m, W, Lq, B, K,
+            CHUNK_MIN if C is None else C, int(C is not None),
+            chunk_blocks(dev), stream)
+    _raise_on(rc, "cf_myers_hw_chunks")
+    _count(myers_hw_chunks, dev)
+
+
+myers_hw_chunks.launches = 0
+myers_hw_chunks.launches_by_device = {}
+
+
 PERROW_MAX_WORDS = 8    # K4: m <= 256, vp and vn in one thread's registers
 PERROW_MAX_QUERIES = 256  # K4: a block holds 256 // Q whole windows
 MODES = {"HW": 0, "SHW": 1}
@@ -651,4 +811,4 @@ myers_carry.launches_by_device = {}
 
 
 WRAPPERS = (myers_hw_2strand, myers_hw_v3, myers_hw_v3_banded, myers_perrow,
-            myers_carry)
+            myers_carry, myers_hw_chunks)

@@ -48,10 +48,12 @@ and the exact-tier rows with N), `engine.prescan` (the host prescan, with
 the prescan and the per-row resolve loops after a readback),
 `engine.launch` (a device tier's call: uploads and kernel enqueue) and
 `engine.wait` (a readback that waits for the card); and the counters
-`engine.prescan_rows` and `engine.candidate_rows` (the rows passed to the
-fused step). `recruit_file` adds `engine.init` (the engine's build),
-`engine.read` (each step of the reader) and `engine.write` (a recruited
-read's decode and write).
+`engine.prescan_rows`, `engine.candidate_rows` (the rows passed to the
+fused step) and `engine.scored_rows` (the rows the fused step scored for
+the host: its n_pass, the largest shard's under a mesh, where no
+overflow sends them to the exact tier). `recruit_file` adds
+`engine.init` (the engine's build), `engine.read` (each step of the
+reader) and `engine.write` (a recruited read's decode and write).
 """
 
 from __future__ import annotations
@@ -362,6 +364,7 @@ class RecruitmentEngine:
                 df, dr, hits, n_pass = self._fused.unbundle(
                     bundle, lens_snap.shape[0])
                 if n_pass <= self.k_budget:
+                    count("engine.scored_rows", n_pass)
                     for row, ridx in enumerate(rows_map):
                         resolve(ridx, int(df[row]), int(dr[row]))
                 else:

@@ -13,8 +13,13 @@ K2 are one wavefront kernel in instances of G = 8 and 32 lanes per
 timed at 128 x 10240 (phases k1, k2) and at 2048 x 10240 (phase
 myers_ops, where the
 wrapper's instance is held against the plain version on exact-tier
-batch 0), beside the instance the wrapper picks. K3 runs two passes (a
-prefix filter, then the survivors in column windows): it is also held
+batch 0), beside the instance the wrapper picks. K1c, the fused step's
+survivor scorer (the passing rows only, each in exact column chunks),
+is held against the plain version on whole rows and timed at the
+pipeline's shape, 128 of 256 rows x 32768 with 11 and 128 rows passing,
+at its own chunk width and others, beside K1 on whole rows (phase
+k1c). K3 runs two passes (a prefix filter, then the survivors in column
+windows): it is also held
 against the plain version under forced plans and timed pass by pass at
 each alpha of K3_ALPHAS. Each kernel is listed with its bound: the
 larger of its operations over the card's INT32 rate at the maximum SM
@@ -48,12 +53,12 @@ and on the CPU: every artifact must be equal, and a resumed run on the
 card must return the same assembly. Phase cenx_pipeline runs it at the
 full world from a reads file of about 275 Mbp (the world's records, its
 reads over the array's ends, and main_path's background reads): stage 1
-recruits on the card (K1), stages 2-4 resume from the artifacts that
-phases unique_kmers and placement left, stages 5 (the consensus unit,
-its k-mer count on the card) and 6 (per-position polishing, the final
-polish) run. The recruited set must be every world read and no
-background read, equal to the exact tier's; unit* within 5 edits of
-DXZ1; the assembly within 0.5% of the simulated array over its span;
+recruits on the card (K1c in the fused step), stages 2-4 resume from
+the artifacts that phases unique_kmers and placement left, stages 5 (the
+consensus unit, its k-mer count on the card) and 6 (per-position
+polishing, the final polish) run. The recruited set must be every
+world read and no background read, equal to the exact tier's; unit*
+within 5 edits of DXZ1; the assembly within 0.5% of the simulated array over its span;
 final_assembly.fasta and unit_star.fasta the JAX package's files
 (ASSEMBLY_DIGEST, UNIT_STAR_DIGEST, tools/cenx_vs_jax.py).
 
@@ -128,13 +133,14 @@ from centroflye_tpu_torch.mono.pipeline import MonoPipeline
 from centroflye_tpu_torch.mono.string_decomposer import (
     MonomerDecomposer, MonomerDecomposerConfig)
 from centroflye_tpu_torch.ops import _build, fused_recruit, scoring
-from centroflye_tpu_torch.ops.myers import (build_peq, carry_init,
-                                            myers_carry_plain,
+from centroflye_tpu_torch.ops.myers import (MASK, build_peq, carry_init,
+                                            int32_words, myers_carry_plain,
                                             myers_distance_batch,
                                             words_tensor)
 from centroflye_tpu_torch.ops.myers_cuda import (
-    GROUPS, PERROW_CALLS, BandedRun, banded_plan, myers_carry,
-    myers_hw_2strand,
+    GROUPS, PERROW_CALLS, BandedRun, banded_plan, chunk_blocks,
+    chunk_columns, chunk_windows, myers_carry, myers_hw_2strand,
+    myers_hw_chunks,
     myers_hw_2strand_plain, myers_hw_v3, myers_hw_v3_banded,
     myers_hw_v3_plain, myers_perrow, myers_perrow_plain, perrow_queries,
     pick_group, threshold_hw)
@@ -172,10 +178,16 @@ SEG_LEN = 10240
 K_BUDGET = 128            # rows K1 scores per fused step
 K3_ALPHAS = (2.0, 2.5, 3.0)   # K3's prefix rows per row of k + 1, timed
 PIPELINE_SEG_LEN = 32768  # recruit_file's segment length, the pipeline's
-FUSED_EVERY = 4           # every 4th fused step's K1 inputs kept for the check
+FUSED_EVERY = 4           # every 4th fused step's K1c call kept for the check
+CAND_ROWS = 256           # candidate rows of a fused step (the engine's)
+K1C_PASSING = (11, 128)   # passing rows of a fused step that K1c is timed at
+K1C_CHUNKS = (2048, 4096, 8192)   # C that K1c is timed at besides its own
 CLI_READS = 300
 PALLAS = "centroflye_tpu/ops/myers_pallas_v3.py"
 K1_REPLACES = f"{PALLAS}:575"
+# K1c scores the fused step's survivors, which the JAX package scores
+# whole with K1's pallas_call; it replaces none of its own
+K1C_REPLACES = f"none (the survivors of {PALLAS}:575)"
 K2_REPLACES = f"{PALLAS}:188"
 K3_REPLACES = f"{PALLAS}:451"
 K4_REPLACES = "centroflye_tpu/ops/myers.py:113"   # a jnp scan, no pallas_call
@@ -624,6 +636,91 @@ def k1_d6z1(rng, dev, rate):
             "bound_ms": bound_ms}
 
 
+def k1c_case(rng, unit_codes, dev):
+    """A fused step's survivor scoring at the pipeline's shape: CAND_ROWS
+    rows of PIPELINE_SEG_LEN columns (`k1_case`'s rows, their N made
+    bases, as the engine's candidate rows hold none; every row full but
+    a few short ones), packed on the card, and the order of a random
+    permutation of them -> (K1c's arguments but n_pass and the outputs,
+    the (L, B) codes)."""
+    m = len(unit_codes)
+    pf, pr, text_t, _ = k1_case(rng, unit_codes, m, PIPELINE_SEG_LEN,
+                                CAND_ROWS, "cpu")
+    codes = text_t.t().numpy()
+    codes = np.where(codes < 4, codes,
+                     rng.integers(0, 4, codes.shape)).astype(np.int8)
+    lens = np.full(CAND_ROWS, PIPELINE_SEG_LEN, np.int32)
+    lens[6], lens[7], lens[8] = 0, m // 2, 3 * m
+    packed, _ = fused_recruit.pack_2bit(codes, lens)
+    order = torch.from_numpy(rng.permutation(CAND_ROWS)).to(dev)
+    args = (int32_words(pf.to(dev)), int32_words(pr.to(dev)),
+            torch.from_numpy(packed).to(dev), None,
+            torch.from_numpy(lens).to(dev), order[:K_BUDGET])
+    return args, torch.from_numpy(codes.T.copy()).to(dev)
+
+
+def phase_k1c(dev, rate):
+    """K1c, the fused step's survivor scorer, at the pipeline's shape
+    (K_BUDGET of CAND_ROWS rows x PIPELINE_SEG_LEN columns) with
+    K1C_PASSING rows passing, on DXZ1 and D6Z1: its distances equal the
+    plain version on whole rows (at its own C and each of K1C_CHUNKS);
+    timed at each C, beside K1 on the same passing rows whole (the
+    scorer's launch before K1c: rows that failed were scored too, so at
+    K_BUDGET rows) and beside the bound of the passing rows' work."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    out = {}
+    for name, fasta in (("DXZ1", UNIT_FASTA), ("D6Z1", D6Z1_FASTA)):
+        unit_codes = encode(read_seq(fasta))
+        m = len(unit_codes)
+        args, text_t = k1c_case(rng, unit_codes, dev)
+        words_f, words_r, _, _, lens, top = args
+        pf, pr = (w.long() & MASK for w in (words_f, words_r))
+        want, plain_ms = timed_plain(lambda: plain_both_strands(
+            pf, pr, text_t[:, top].contiguous(), lens[top], m=m))
+        k1_ms = time_cuda(lambda: myers_hw_2strand(
+            pf, pr, text_t[:, top].contiguous(), lens[top], m=m), reps=5)
+        for n_pass in K1C_PASSING:
+            n_t = torch.tensor([n_pass], dtype=torch.int32, device=dev)
+            rows = top[:n_pass]
+            by_c, err = {}, 0
+            own = chunk_columns(m, PIPELINE_SEG_LEN, n_pass,
+                                chunk_blocks(dev))
+            for C in (None, *K1C_CHUNKS):
+                dist = [torch.full((CAND_ROWS,), m, dtype=torch.int32,
+                                   device=dev) for _ in range(2)]
+                myers_hw_chunks(*args, n_t, *dist, m=m, C=C)
+                err = max(err, max_abs_err(
+                    {"dist_f": dist[0][rows], "dist_r": dist[1][rows]},
+                    {k: want[k][:n_pass] for k in ("dist_f", "dist_r")}))
+                untouched = torch.ones(CAND_ROWS, dtype=torch.bool,
+                                       device=dev)
+                untouched[rows] = False
+                err = max(err, int((dist[0][untouched] != m).sum()
+                                   + (dist[1][untouched] != m).sum()))
+                by_c["own" if C is None else C] = time_cuda(
+                    lambda: myers_hw_chunks(*args, n_t, *dist, m=m, C=C),
+                    reps=10)
+            check(err == 0, f"K1c != plain at {n_pass} of {K_BUDGET} rows "
+                  f"x {PIPELINE_SEG_LEN}, {name} m={m}")
+            out[f"{n_pass}x{PIPELINE_SEG_LEN} {name} m={m}"] = {
+                "m": m, "rows": n_pass, "candidate_rows": CAND_ROWS,
+                "chunk_columns": own, "chunks_a_row": len(chunk_windows(
+                    PIPELINE_SEG_LEN, m, own)),
+                "max_abs_err": err, "ms": by_c["own"], "ms_by_chunk": by_c,
+                "k1_whole_rows_ms": k1_ms, "plain_ms": plain_ms,
+                "bound_ms": myers_bound(lens[rows], pf.shape[1], 2,
+                                        rate)[0]}
+    emit({"phase": "k1c", "instances": out,
+          "seconds": time.perf_counter() - t0})
+    first = out[f"{K1C_PASSING[0]}x{PIPELINE_SEG_LEN} DXZ1 m="
+                f"{len(read_seq(UNIT_FASTA))}"]
+    return {"max_abs_err": max(i["max_abs_err"] for i in out.values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "library_ms": None,
+            "instances": out}
+
+
 def phase_k2(k1, k1_ms, m, rate):
     """K2 with peq_f, then peq_r, on phase k1's batch, the wrapper's
     instance and every G: each equals the matching strand of the plain
@@ -871,15 +968,18 @@ def phase_main_path(unit, dev):
     torch.cuda.synchronize()
 
     myers_hw_2strand.launches = 0
+    myers_hw_chunks.launches = 0
     t_run = time.perf_counter()
     results = list(engine.run(reads))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_run
-    launches = myers_hw_2strand.launches
+    launches = {"k1": myers_hw_2strand.launches,
+                "k1c": myers_hw_chunks.launches}
     runs, fills = hold_fills(unit, cfg, reads, results, dev)
     runs[True].insert(0, dt)
 
-    check(launches > 0, "the main path launched K1 no time")
+    check(launches["k1c"] > 0, "the main path's fused step launched K1c "
+          "no time")
     check([r.r_id for r in results] == [r for r, _ in reads],
           "results out of input order")
     recruited = {r.r_id for r in results if r.recruited}
@@ -914,7 +1014,8 @@ def phase_main_path(unit, dev):
           "cen_reads": len(cen), "recruited": len(recruited),
           "exact_tier_reads": len(reads), "exact_tier_equal": True,
           "reads_per_s": len(reads) / dt, "mbp_per_s": total_bp / dt / 1e6,
-          "run_seconds": dt, "k1_launches": launches,
+          "run_seconds": dt, "k1_launches": launches["k1"],
+          "k1c_launches": launches["k1c"],
           "fills_equal": True,
           "fills": {("native" if f else "numpy"): {
               "run_seconds": runs[f],
@@ -1771,8 +1872,8 @@ def phase_placement(world, dec, res, dev, outdir,
     return out
 
 
-KERNELS = {"k1": myers_hw_2strand, "k2": myers_hw_v3,
-           "k3": myers_hw_v3_banded, "k4": myers_perrow}
+KERNELS = {"k1": myers_hw_2strand, "k1c": myers_hw_chunks,
+           "k2": myers_hw_v3, "k3": myers_hw_v3_banded, "k4": myers_perrow}
 PIPELINE_STAGES = ("run_recruitment", "run_decomposition",
                    "run_unique_kmers", "run_placement",
                    "run_placement_validation", "run_unit_consensus",
@@ -1822,21 +1923,22 @@ def write_pipeline_reads(fn, world, background):
 
 @contextlib.contextmanager
 def captured_fused_k1():
-    """Keeps every FUSED_EVERY-th fused recruitment step's K1 inputs
-    (tensors the step made for the call, kept by reference) in the list
-    it yields, for `hold_fused_k1` after the run."""
-    captured, steps, score = [], [0], fused_recruit.recruit_distances
+    """Keeps every FUSED_EVERY-th fused recruitment step's survivor
+    scoring, K1c's call (its arguments: tensors the step made, kept by
+    reference, among them the distances K1c wrote into the step's
+    bundle), in the list it yields, for `hold_fused_k1` after the run."""
+    captured, steps, score = [], [0], fused_recruit.myers_hw_chunks
 
-    def capture(peq_f, peq_r, codes, lens, *, m):
+    def capture(*args, m, C=None):
+        score(*args, m=m, C=C)
         if steps[0] % FUSED_EVERY == 0:
-            captured.append((peq_f, peq_r, codes, lens))
+            captured.append(args)
         steps[0] += 1
-        return score(peq_f, peq_r, codes, lens, m=m)
-    fused_recruit.recruit_distances = capture
+    fused_recruit.myers_hw_chunks = capture
     try:
         yield captured
     finally:
-        fused_recruit.recruit_distances = score
+        fused_recruit.myers_hw_chunks = score
 
 
 def plain_both_strands(peq_f, peq_r, text_t, lens, *, m):
@@ -1853,40 +1955,64 @@ def plain_both_strands(peq_f, peq_r, text_t, lens, *, m):
             "dist_r": out["dist"][B:], "end_r": out["end"][B:]}
 
 
+def scored_rows(args) -> torch.Tensor:
+    """The rows a captured K1c call scored: top[:min(n_pass, K)]."""
+    top, n_pass = args[5], args[6]
+    return top[:min(int(n_pass[0]), top.numel())]
+
+
 def hold_fused_k1(captured, m, rate, threshold, path):
-    """K1 against its plain version on every row of one fused step of
-    `path`'s recruitment, at its segment length (PIPELINE_SEG_LEN
-    columns). Of the `captured` K1 inputs, the batch is one with a
-    full-length row and rows both within and past `threshold`, if there
-    is one, and of those the one with most rows within. Returns the
-    fields for the phase's line and K1's instance."""
+    """K1c against the plain version on whole rows, on every row one fused
+    step of `path`'s recruitment scored, at its segment length
+    (PIPELINE_SEG_LEN columns): the distances K1c wrote into the step's
+    bundle equal `plain_both_strands` on the rows unpacked. Of the
+    `captured` calls, the one is taken with a full-length scored row and
+    scored rows both within and past `threshold`, if there is one, and
+    of those the one with most rows within. Then K1c's launch again and
+    K1 on the same rows whole are timed. Returns the fields for the
+    phase's line and K1c's instance."""
     scored = []
-    for peq_f, peq_r, codes, lens in captured:
-        text_t = codes.t().contiguous()
-        got = myers_hw_2strand(peq_f, peq_r, text_t, lens, m=m)
-        d = torch.minimum(got["dist_f"], got["dist_r"])
-        scored.append(((int(lens.max()) == PIPELINE_SEG_LEN,
+    for args in captured:
+        rows = scored_rows(args)
+        if not rows.numel():
+            continue
+        dist_f, dist_r = args[7][rows], args[8][rows]
+        d = torch.minimum(dist_f, dist_r)
+        scored.append(((int(args[4][rows].max()) == PIPELINE_SEG_LEN,
                         int((d <= threshold).sum()) > 0
                         and int((d > threshold).sum()) > 0,
-                        int((d <= threshold).sum())),
-                       (peq_f, peq_r, text_t, lens), got))
-    check(scored, f"{path}'s recruitment ran no fused step")
-    key, args, got = max(scored, key=lambda x: x[0])
-    check(key[0], f"no captured fused step of {path} holds a "
+                        int((d <= threshold).sum())), args, rows))
+    check(scored, f"{path}'s recruitment scored no row in a fused step")
+    key, args, rows = max(scored, key=lambda x: x[0])
+    check(key[0], f"no captured fused step of {path} scored a "
           f"{PIPELINE_SEG_LEN}-column row")
-    want, plain_ms = timed_plain(lambda: plain_both_strands(*args, m=m))
+    words_f, words_r, packed, n_mask, lens, top, n_pass, dist_f, dist_r = args
+    peq_f, peq_r = (w.long() & MASK for w in (words_f, words_r))
+    codes = (fused_recruit._unpack_nomask(packed[rows]) if n_mask is None
+             else fused_recruit._unpack_2bit(packed[rows], n_mask[rows]))
+    text_t = codes.t().contiguous()
+    want, plain_ms = timed_plain(
+        lambda: plain_both_strands(peq_f, peq_r, text_t, lens[rows], m=m))
+    got = {"dist_f": dist_f[rows], "dist_r": dist_r[rows]}
     err = max_abs_err(got, want)
-    ms = time_cuda(lambda: myers_hw_2strand(*args, m=m), reps=5)
-    rows = args[3].numel()
-    bound_ms, _ = myers_bound(args[3], args[0].shape[1], 2, rate)
-    check(err == 0, f"K1 != plain on {path}'s fused step "
-          f"({rows}x{PIPELINE_SEG_LEN}, m = {m})")
-    fields = {"m": m, "rows": rows, "sum_lens": int(args[3].sum()),
-              "rows_in_band": key[2], "mixed_band": key[1],
-              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "group": pick_group(rows, 2),
+    again = [torch.full_like(dist_f, m) for _ in range(2)]
+    ms = time_cuda(lambda: myers_hw_chunks(*args[:7], *again, m=m), reps=5)
+    err = max(err, max_abs_err({"dist_f": again[0][rows],
+                                "dist_r": again[1][rows]}, want))
+    k1_ms = time_cuda(lambda: myers_hw_2strand(peq_f, peq_r, text_t,
+                                               lens[rows], m=m), reps=5)
+    n = rows.numel()
+    bound_ms, _ = myers_bound(lens[rows], peq_f.shape[1], 2, rate)
+    check(err == 0, f"K1c != plain on {path}'s fused step "
+          f"({n} of {packed.shape[0]} rows x {PIPELINE_SEG_LEN}, m = {m})")
+    fields = {"m": m, "rows": n, "candidate_rows": packed.shape[0],
+              "sum_lens": int(lens[rows].sum()), "rows_in_band": key[2],
+              "mixed_band": key[1], "max_abs_err": err, "ms": ms,
+              "k1_whole_rows_ms": k1_ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "chunk_columns": chunk_columns(
+                  m, PIPELINE_SEG_LEN, n, chunk_blocks(packed.device)),
               "batches_captured": len(captured)}
-    return fields, {f"{rows}x{PIPELINE_SEG_LEN} {path} fused step": fields}
+    return fields, {f"{n}x{PIPELINE_SEG_LEN} {path} fused step": fields}
 
 
 def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
@@ -1894,13 +2020,13 @@ def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
     """The cenX pipeline from a reads file to final_assembly.fasta on the
     card, at the full world: `CenXPipeline(unit, CentroFlyeConfig(),
     outdir, device=dev).run(reads)`. Stage 1 recruits from the world's
-    records, its reads over the array's ends and `background` (K1 in
+    records, its reads over the array's ends and `background` (K1c in
     the fused step); stages 2-4 resume from the artifacts that phases
     unique_kmers and placement left in `outdir` (decomposition.json,
     the unique k-mers, read_positions.csv, placement_validation.csv);
-    stages 5 and 6 run. Fails unless K1 launched, the recruited reads
+    stages 5 and 6 run. Fails unless K1c launched, the recruited reads
     are every world read and no background read, equal to the exact
-    tier's set (prefilter off) on the same file, K1 on one of its fused
+    tier's set (prefilter off) on the same file, K1c on one of its fused
     steps equals the plain version (`hold_fused_k1`, at the pipeline's
     segment length), unit* is within 5 edits
     (NW) of the unit, and the assembly, held against the simulated array
@@ -1911,7 +2037,8 @@ def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
     None skips one). Prints each stage's seconds, the polished
     positions, the assembly's length and divergence, the edit distances
     between the iterations of both polish reports and the peak device
-    memory. Returns K1's launches and instance on this path."""
+    memory. Returns the kernels' launches and K1c's instance on this
+    path."""
     t0 = time.perf_counter()
     reads_fn = os.path.join(outdir, "reads.fasta")
     cen, mbp = write_pipeline_reads(reads_fn, world, background)
@@ -1935,7 +2062,8 @@ def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
                                        "cenx_pipeline")
     fused["seconds"] = time.perf_counter() - t
     del captured
-    check(launches["k1"] > 0, "the cenX pipeline launched K1 no time")
+    check(launches["k1c"] > 0, "the cenX pipeline's fused step launched K1c "
+          "no time")
     check(set(seconds) == set(PIPELINE_STAGES),
           f"stages run: {sorted(seconds)}")
 
@@ -2024,9 +2152,11 @@ def phase_cenx_fresh(dev):
             pipe = timed_pipeline(CenXPipeline(unit, fresh_config(), out,
                                                device=d), stage_s, {})
             myers_hw_2strand.launches = 0
+            myers_hw_chunks.launches = 0
             finals[where] = pipe.run(reads_fn)
             seconds[where] = {**stage_s,
-                              "k1_launches": myers_hw_2strand.launches}
+                              "k1_launches": myers_hw_2strand.launches,
+                              "k1c_launches": myers_hw_chunks.launches}
             files[where] = file_digests(out)
     same = files["card"] == files["cpu"]
     emit({"phase": "cenx_fresh", "reads": len(reads),
@@ -2034,8 +2164,8 @@ def phase_cenx_fresh(dev):
           "assembly_len": len(finals["card"]),
           "resume_equal": finals["resume"] == finals["card"],
           "stage_seconds": seconds, "seconds": time.perf_counter() - t0})
-    check(seconds["card"]["k1_launches"] > 0,
-          "cenx_fresh: the card's run launched K1 no time")
+    check(seconds["card"]["k1_launches"] + seconds["card"]["k1c_launches"]
+          > 0, "cenx_fresh: the card's run launched K1 and K1c no time")
     check(len(files["card"]) == 17 and same,
           f"cenx_fresh: the card's artifacts differ from the CPU's: "
           f"{sorted(k for k in files['card'] if files['card'][k] != files['cpu'].get(k))}")
@@ -2446,11 +2576,11 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
                         want=(CEN6_SCAFFOLD_DIGEST, CEN6_IDB_DIGEST)):
     """The cen6 path on the card at cen6's array size (`cen6_world`):
     `recruit_file` with the D6Z1 unit at CEN6_THRESHOLD on a reads file
-    of the world's reads and `background` (K1 in the fused step), then
+    of the world's reads and `background` (K1c in the fused step), then
     `MonoPipeline(MonoConfig(), outdir, device=dev)`: `decompose` on the
     recruited reads (K4, one launch a lockstep step) and `run` (error
     correction, the k = 100..400 de Bruijn sweep, scaffolding and the
-    automatic join, pseudounit polishing). Fails unless K1 and K4
+    automatic join, pseudounit polishing). Fails unless K1c and K4
     launched, the recruited set is the world's reads and equals the
     exact tier's (prefilter off), the call accuracy on '+' reads is at
     least CEN6_MIN_ACCURACY, every scaffold is an exact run of the
@@ -2460,9 +2590,9 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     file, `tree_digest`) are those in `want` (the JAX package's files
     for this world, tools/cen6_vs_jax.py; None skips one). Prints each
     stage's seconds, the decomposition's rate, steps and K4's device
-    time on a sample of steps, and the peak device memory. K1 on one of
-    recruitment's fused steps must equal its plain version
-    (`hold_fused_k1`, m = 3222). Returns the launches, K1's instance, the
+    time on a sample of steps, and the peak device memory. K1c on one of
+    recruitment's fused steps must equal the plain version
+    (`hold_fused_k1`, m = 3222). Returns the launches, K1c's instance, the
     SDReport and the phase's line. Recruitment and the decomposition run
     under a recording of the port's spans and counters, and the line
     gives each `engine.` and `decomposer.` span's self seconds and each
@@ -2487,7 +2617,8 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
                              device=dev)
     torch.cuda.synchronize()
     seconds["recruitment"] = time.perf_counter() - t
-    k1_launches = myers_hw_2strand.launches
+    k1_launches = {"k1": myers_hw_2strand.launches,
+                   "k1c": myers_hw_chunks.launches}
     t = time.perf_counter()
     fused, k1_instance = hold_fused_k1(captured, len(read_seq(D6Z1_FASTA)),
                                        rate, CEN6_THRESHOLD, "cen6_pipeline")
@@ -2539,9 +2670,9 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
     # (a host stall longer than the spin leaves a sample timing the host)
     k4_ms = [e0.elapsed_time(e1) for (e0, e1), q in zip(events, queued)
              if q]
-    launches = {"k1": k1_launches, **{k: kernel.launches
-                                      for k, kernel in KERNELS.items()
-                                      if k != "k1"}}
+    launches = {**k1_launches, **{k: kernel.launches
+                                  for k, kernel in KERNELS.items()
+                                  if k not in k1_launches}}
     batches = -(-len(recruited) // MonomerDecomposerConfig().batch_reads)
     first_steps = sum(c == "all" for _, c in steps)
     calls, correct, flipped = call_accuracy(world, sd)
@@ -2610,7 +2741,8 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
                          for k, w in zip(digests, want)},
            "seconds": time.perf_counter() - t0}
     emit(out)
-    check(launches["k1"] > 0, "cen6 recruitment launched K1 no time")
+    check(launches["k1c"] > 0, "cen6 recruitment's fused step launched K1c "
+          "no time")
     check(launches["k4"] > 0, "the cen6 decomposition launched K4 no time")
     check(program.counters["decomposer.steps"] == launches["k4"],
           f"{program.counters['decomposer.steps']} decomposer steps for "
@@ -3064,14 +3196,14 @@ def phase_mesh(unit, reads, recruited, distances, cenx_files, mono_files,
                             seq_parallel_min_len=0)
     engine = RecruitmentEngine(unit, cfg, seg_len=SEG_LEN, device=dev,
                                mesh=mesh)
-    myers_hw_2strand.launches = 0
+    myers_hw_chunks.launches = 0
     got = [(r.r_id, r.dist_fwd, r.dist_rc) for r in engine.run(reads)]
     torch.cuda.synchronize()
-    k1_sharded = myers_hw_2strand.launches
+    k1c_sharded = myers_hw_chunks.launches
     seconds["fused_mesh"] = time.perf_counter() - t
     check(engine.mesh.size == MESH_SHARDS and engine._fused.n_dev ==
           MESH_SHARDS, "the engine did not take the mesh")
-    check(k1_sharded > 0, "the sharded fused step launched K1 no time")
+    check(k1c_sharded > 0, "the sharded fused step launched K1c no time")
     want = distances["prefilter"]
     check(got == want, "the sharded engine's distances differ from "
           f"main_path's: {[a for a, b in zip(got, want) if a != b][:5]}")
@@ -3188,7 +3320,7 @@ def phase_mesh(unit, reads, recruited, distances, cenx_files, mono_files,
     emit({"phase": "mesh", "shards": MESH_SHARDS,
           "k5": {k: v for k, v in k5.items() if k != "library_ms"},
           "fused_mesh": {"reads": len(reads), "equal": True,
-                         "k1_launches": k1_sharded},
+                         "k1c_launches": k1c_sharded},
           "default_mesh": {"reads": len(reads), "recruited": len(mesh_set),
                            "seqpar_reads": len(long_ids),
                            "k5_launches": k5_default, "equal": True},
@@ -3234,6 +3366,7 @@ def main():
     unit = read_seq(UNIT_FASTA)
     m = len(unit)
     k1, k1_state = phase_k1(encode(unit), dev, rate)
+    k1c = phase_k1c(dev, rate)
     k2 = phase_k2(k1_state, k1["ms"], m, rate)
     k3 = phase_k3(encode(unit), dev, k1["ms"], k2["ms"], rate)
     k4 = phase_k4(dev, rate)
@@ -3282,12 +3415,13 @@ def main():
                                         cenx_files, mono_files, dev, rate)
     for kernel, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kernel.setdefault("instances", {}).update(at_2048[key])
-    k1["instances"].update(k1_pipeline)
-    k1["instances"].update(k1_cen6)
-    k1["max_abs_err"] = max(k1["max_abs_err"], *(
+    k1c["instances"].update(k1_pipeline)
+    k1c["instances"].update(k1_cen6)
+    k1c["max_abs_err"] = max(k1c["max_abs_err"], *(
         i["max_abs_err"] for i in (*k1_pipeline.values(),
                                    *k1_cen6.values())))
-    by_path = {"k1": {"main_path": launches},
+    by_path = {"k1": {"main_path": launches["k1"]},
+               "k1c": {"main_path": launches["k1c"]},
                "k2": {"myers_ops": ops_launches["k2"]},
                "k3": {"myers_ops": ops_launches["k3"]}, "k4": {}}
     for key, n in pipeline_launches.items():
@@ -3297,7 +3431,12 @@ def main():
     emit({"kernels": [
         {"name": "myers_hw_2strand", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K1_REPLACES,
-         "launches": launches, "launches_by_path": by_path["k1"], **k1},
+         "launches": launches["k1"], "launches_by_path": by_path["k1"],
+         **k1},
+        {"name": "myers_hw_chunks", "route": "cuda",
+         "source": f"{CSRC}/myers_hw_chunks.cu", "replaces": K1C_REPLACES,
+         "launches": launches["k1c"], "launches_by_path": by_path["k1c"],
+         **k1c},
         {"name": "myers_hw_v3", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K2_REPLACES,
          "launches": ops_launches["k2"], "launches_by_path": by_path["k2"],

@@ -144,35 +144,48 @@ def test_scoring_calls_recorded_and_replayed(monkeypatch, max_vocab):
 
 
 def test_hold_fused_k1_takes_a_mixed_full_batch(monkeypatch):
-    """hold_fused_k1 on CPU tensors (K1's plain route) at a 512-column
-    segment: of a short batch, a full batch of tandem rows only and a
-    full batch with rows within and past the threshold, it holds the
-    last against the plain version, on every row."""
+    """hold_fused_k1 on CPU tensors (K1c's plain route) at a 512-column
+    segment: of three captured K1c calls (a short batch, a full batch of
+    tandem rows only and a full batch with rows within and past the
+    threshold), it holds the last against the plain version on whole
+    rows, on every row it scored: the first n_pass of its pass order."""
     import torch
 
     import chip_smoke as cs
+    from centroflye_tpu_torch.ops.fused_recruit import pack_2bit
+    from centroflye_tpu_torch.ops.myers import int32_words
     monkeypatch.setattr(cs, "PIPELINE_SEG_LEN", 512)
     monkeypatch.setattr(cs, "time_cuda", lambda fn, reps: fn() and 0.0)
     monkeypatch.setattr(cs, "timed_plain", lambda fn: (fn(), 0.0))
     rng = np.random.default_rng(3)
-    m, L, B = 40, 512, 16
+    m, L, B, n_pass = 40, 512, 16, 12
     unit = rng.integers(0, 4, m).astype(np.int8)
 
-    def batch(lens_cap, tandem_only):
+    def call(lens_cap, tandem_only):
         pf, pr, text_t, lens = cs.k1_case(rng, unit, m, L, B, "cpu")
-        codes = text_t.t().contiguous()
+        codes = text_t.t().contiguous().numpy()
         if tandem_only:
-            codes[:] = torch.from_numpy(np.tile(unit, L // m + 1)[:L])
+            codes[:] = np.tile(unit, L // m + 1)[:L]
             lens[:] = L
-        return pf, pr, codes, lens.clamp(max=lens_cap)
-    captured = [batch(L - 1, False), batch(L, True), batch(L, False)]
+        lens = lens.clamp(max=lens_cap)
+        packed, n_mask = pack_2bit(codes, lens.numpy())
+        dist = [torch.full((B,), m, dtype=torch.int32) for _ in range(2)]
+        args = (int32_words(pf), int32_words(pr), torch.from_numpy(packed),
+                None if n_mask is None else torch.from_numpy(n_mask), lens,
+                torch.roll(torch.arange(B), 2),
+                torch.tensor([n_pass], dtype=torch.int32), *dist)
+        cs.myers_hw_chunks(*args, m=m)
+        return args
+    captured = [call(L - 1, False), call(L, True), call(L, False)]
     fields, instance = cs.hold_fused_k1(captured, m, 1e13, 10,
                                         "cenx_pipeline")
-    assert list(instance) == [f"{B}x512 cenx_pipeline fused step"]
-    assert fields["max_abs_err"] == 0 and fields["rows"] == B
+    assert list(instance) == [f"{n_pass}x512 cenx_pipeline fused step"]
+    assert fields["max_abs_err"] == 0 and fields["rows"] == n_pass
     assert fields["m"] == m and fields["mixed_band"]
-    assert fields["sum_lens"] == int(captured[2][3].sum())
-    assert 0 < fields["rows_in_band"] < B
+    assert fields["candidate_rows"] == B
+    rows = captured[2][5][:n_pass]
+    assert fields["sum_lens"] == int(captured[2][4][rows].sum())
+    assert 0 < fields["rows_in_band"] < n_pass
     assert fields["batches_captured"] == 3
 
 
@@ -255,7 +268,7 @@ def test_cli_phase_holds_on_the_cpu(monkeypatch, tmp_path, capsys):
 @pytest.mark.parametrize("m", [40, 90])
 def test_plain_both_strands_is_the_two_strand_plain(m):
     """plain_both_strands (both strands as one plain call of 2B rows with
-    per-row queries), which hold_fused_k1 takes as K1's reference, gives
+    per-row queries), which hold_fused_k1 takes as K1c's reference, gives
     myers_hw_2strand_plain's four outputs on a mixed batch: ragged lens,
     N runs, tandem rows on both strands, random rows."""
     import torch

@@ -15,7 +15,7 @@ from centroflye_tpu.pipeline.simulate import add_read_noise, gen_random_seq
 
 from centroflye_tpu_torch.ops import fused_recruit as tfused
 from centroflye_tpu_torch.ops.myers import words_tensor
-from centroflye_tpu_torch.ops.myers_cuda import myers_hw_2strand
+from centroflye_tpu_torch.ops.myers_cuda import myers_hw_chunks
 
 
 @pytest.fixture
@@ -151,9 +151,9 @@ def test_fused_bundle_on_gpu_matches_cpu(cuda):
     unit, packed, lens = _batch(9, 256, 1024, 150)
     _, cpu_fused = _pair(unit, 128, 2)
     _, gpu_fused = _pair(unit, 128, 2, cuda)
-    before = myers_hw_2strand.launches
+    before = myers_hw_chunks.launches
     got = gpu_fused.raw(packed, None, lens).cpu()
-    assert myers_hw_2strand.launches == before + 1
+    assert myers_hw_chunks.launches == before + 1
     assert torch.equal(got, cpu_fused.raw(packed, None, lens))
 
 
@@ -162,7 +162,7 @@ def test_fused_masked_bundle_on_gpu_matches_cpu(cuda):
     unit, packed, n_mask, lens = _batch(11, 256, 1024, 150, with_n=True)
     _, cpu_fused = _pair(unit, 128, 2)
     _, gpu_fused = _pair(unit, 128, 2, cuda)
-    before = myers_hw_2strand.launches
+    before = myers_hw_chunks.launches
     got = gpu_fused.raw(packed, n_mask, lens).cpu()
-    assert myers_hw_2strand.launches == before + 1
+    assert myers_hw_chunks.launches == before + 1
     assert torch.equal(got, cpu_fused.raw(packed, n_mask, lens))

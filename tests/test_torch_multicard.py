@@ -109,7 +109,7 @@ def test_launch_counts_by_card():
     assert set(myers_cuda.WRAPPERS) == {
         myers_cuda.myers_hw_2strand, myers_cuda.myers_hw_v3,
         myers_cuda.myers_hw_v3_banded, myers_cuda.myers_perrow,
-        myers_cuda.myers_carry}
+        myers_cuda.myers_carry, myers_cuda.myers_hw_chunks}
     for w in myers_cuda.WRAPPERS:
         assert w.launches_by_device == {}
 

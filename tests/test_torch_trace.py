@@ -29,7 +29,8 @@ SEG_LEN = 512
 ENGINE_SPANS = ("engine.init", "engine.read", "engine.fill",
                 "engine.prescan", "engine.route", "engine.launch",
                 "engine.wait", "engine.write")
-ENGINE_COUNTERS = ("engine.prescan_rows", "engine.candidate_rows")
+ENGINE_COUNTERS = ("engine.prescan_rows", "engine.candidate_rows",
+                   "engine.scored_rows")
 DECOMPOSER_SPANS = ("decomposer.cut", "decomposer.launch", "decomposer.wait",
                     "decomposer.choose", "decomposer.advance",
                     "decomposer.records")
@@ -179,6 +180,9 @@ def test_recruit_file_records_its_spans_and_counters(reads_file):
     # the tandem segments pass to the fused step, most others do not
     assert n <= rec.counters["engine.candidate_rows"] < \
         rec.counters["engine.prescan_rows"] / 2
+    # every tandem read passes the fused step's filter with a segment
+    assert 40 <= rec.counters["engine.scored_rows"] <= \
+        rec.counters["engine.candidate_rows"]
     assert len(rec.spans["engine.read"]) == len(reads) + 1   # + the end
     assert len(rec.spans["engine.fill"]) >= len(reads)
     assert len(rec.spans["engine.write"]) == n

@@ -97,7 +97,7 @@ from centroflye_tpu_torch.ops.myers import (build_peq,  # noqa: E402
                                             carry_init, myers_carry_plain,
                                             words_tensor)
 from centroflye_tpu_torch.ops.myers_cuda import (  # noqa: E402
-    PERROW_CALLS, myers_carry, myers_hw_2strand, myers_hw_v3,
+    PERROW_CALLS, myers_carry, myers_hw_2strand, myers_hw_chunks, myers_hw_v3,
     myers_hw_v3_banded, myers_perrow, myers_perrow_plain, reset_launches,
     threshold_hw)
 from centroflye_tpu_torch.parallel import seq_parallel  # noqa: E402
@@ -490,6 +490,7 @@ def phase_engine(run):
                     capture=fused_in if name == "prefilter" else None)
                 mesh = run.resolved_mesh(eng.mesh)
                 k1 = by_card(myers_hw_2strand, mesh.devices)
+                k1c = by_card(myers_hw_chunks, mesh.devices)
                 k5 = by_card(myers_carry, mesh.devices)
                 seqpar_ids = {r for r, sq in reads
                               if len(sq) >= eng.seqpar_min}
@@ -499,15 +500,16 @@ def phase_engine(run):
                   f"{name}: two {where}-card runs differ")
         out[name] = {"seconds_one_card": secs["one"],
                      "seconds_four_cards": secs["four"],
-                     "k1_launches_by_card": k1, "k5_launches_by_card": k5,
+                     "k1_launches_by_card": k1, "k1c_launches_by_card": k1c,
+                     "k5_launches_by_card": k5,
                      "seqpar_reads": len(seqpar_ids)}
         if run.cuda:
-            # the fused step shards; the exact tier runs on the mesh's
-            # first card; the long reads' seq-par tier on every card
-            k1_ok = all(k1) if cfg.prefilter else (
+            # the fused step (K1c) shards; the exact tier (K1) runs on the
+            # mesh's first card; the long reads' seq-par tier on every card
+            k1_ok = all(k1c) if cfg.prefilter else (
                 k1[0] > 0 and not any(k1[1:]))
-            check(k1_ok and all(k5), f"{name}: K1 launched {k1}, K5 {k5} "
-                  "times by card")
+            check(k1_ok and all(k5), f"{name}: K1 launched {k1}, K1c "
+                  f"{k1c}, K5 {k5} times by card")
     one_p, four_p = results["prefilter", "one"], results["prefilter", "four"]
     one_x, four_x = results["exact", "one"], results["exact", "four"]
     want_p = [x if x[0] in seqpar_ids else p for p, x in zip(one_p, one_x)]
@@ -636,6 +638,8 @@ def dist_worker(unit_fn, reads_fn, out_fn, threshold, batch, seg_len,
               "current": torch.cuda.current_device() if cuda else None,
               "recruited": n,
               "k1_launches_by_card": dict(myers_hw_2strand.launches_by_device),
+              "k1c_launches_by_card": dict(
+                  myers_hw_chunks.launches_by_device),
               "seconds": time.perf_counter() - t}
     dist.destroy_process_group()
     return fields
@@ -692,12 +696,15 @@ def phase_distributed(run, reads):
         for w in workers:
             idx = w["local_device"].split(":")[1]
             check(w["current"] == int(idx) and set(
-                w["k1_launches_by_card"]) <= {idx},
+                w["k1_launches_by_card"]) | set(
+                    w["k1c_launches_by_card"]) <= {idx},
                   f"process {w['rank']} on {w['local_device']} launched K1 "
-                  f"on {w['k1_launches_by_card']}, current card "
+                  f"on {w['k1_launches_by_card']}, K1c on "
+                  f"{w['k1c_launches_by_card']}, current card "
                   f"{w['current']}")
-        check(sum(sum(w["k1_launches_by_card"].values()) for w in workers)
-              > 0, "no process launched K1")
+        check(sum(sum(w[k].values()) for w in workers
+                  for k in ("k1_launches_by_card", "k1c_launches_by_card"))
+              > 0, "no process launched K1 or K1c")
     emit({"phase": "distributed", "processes": CARDS, "reads": len(reads),
           "recruited": n_single, "identical": True, "workers": workers,
           "single_process_seconds": single_s,
@@ -764,7 +771,7 @@ def phase_cen6(run, reads):
             secs[f"recruit_{where}"] = time.perf_counter() - t
             files[where] = (cs.sha256_of(fn), n)
             if where == "four":
-                k1 = by_card(myers_hw_2strand, run.devices)
+                k1c = by_card(myers_hw_chunks, run.devices)
                 k5 = by_card(myers_carry, run.devices)
         check(files["one"] == files["four"] and files["one"][1] > 0,
               f"cen6 recruitment: 4 cards {files['four']}, one "
@@ -792,13 +799,13 @@ def phase_cen6(run, reads):
               "cen6: the 4-card SDReport differs from the single card's")
     if run.cuda:
         # reads of at least seq_parallel_min_len take the seq-par tier
-        check(all(k1) and all(k4) and (all(k5) or not n_long),
-              f"cen6: K1 {k1}, K4 {k4}, K5 {k5} launches by card "
+        check(all(k1c) and all(k4) and (all(k5) or not n_long),
+              f"cen6: K1c {k1c}, K4 {k4}, K5 {k5} launches by card "
               f"({n_long} reads for the seq-par tier)")
     emit({"phase": "cen6", "reads": len(world_reads) + len(background),
            "mbp": mbp, "recruited": files["one"][1],
            "identical_file": True, "sd_equal": True,
-           "monostrings": len(sds["one"]), "k1_launches_by_card": k1,
+           "monostrings": len(sds["one"]), "k1c_launches_by_card": k1c,
            "k4_launches_by_card": k4, "k5_launches_by_card": k5,
            "seqpar_reads": n_long, "world_seconds": world_s,
            "phase_seconds": secs, "seconds": time.perf_counter() - t0})
@@ -874,7 +881,7 @@ def phase_cenx(run, background):
             pipe.run(reads_fn)
         run.sync()
         run_s = time.perf_counter() - t
-        k1 = by_card(myers_hw_2strand, mesh.devices)
+        k1c = by_card(myers_hw_chunks, mesh.devices)
         k5 = by_card(myers_carry, mesh.devices)
         run.captured["strip"] = strip
         digests = {name: cs.sha256_of(os.path.join(outdir, name))
@@ -894,8 +901,8 @@ def phase_cenx(run, background):
     check(same3, "stage 3 on four cards and on one wrote different "
           "artifacts")
     if run.cuda:
-        check(all(k1) and (all(k5) or not n_long), f"the cenX pipeline "
-              f"launched K1 {k1}, K5 {k5} times by card ({n_long} reads "
+        check(all(k1c) and (all(k5) or not n_long), f"the cenX pipeline "
+              f"launched K1c {k1c}, K5 {k5} times by card ({n_long} reads "
               "for the seq-par tier)")
     if want is not None:
         bad = {k: digests[k] for k in want if digests[k] != want[k]}
@@ -905,7 +912,7 @@ def phase_cenx(run, background):
         str(d) for d in mesh.devices], "stage_seconds": seconds,
         "run_seconds": run_s, "stage3_one_card_seconds": stage3_one,
         "stage3_identical": True, "sha256": digests,
-        "pinned": want is not None, "k1_launches_by_card": k1,
+        "pinned": want is not None, "k1c_launches_by_card": k1c,
         "k5_launches_by_card": k5, "seqpar_reads": n_long,
         "world_seconds": world_s, "seconds": time.perf_counter() - t0})
 
