@@ -41,6 +41,8 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cf_myers_hw_chunks": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cf_seed_filter_compact": [_P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

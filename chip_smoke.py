@@ -156,6 +156,7 @@ from centroflye_tpu_torch.pipeline.cenx import (CenXPipeline,
 from centroflye_tpu_torch.pipeline.simulate import (add_read_noise,
                                                     gen_random_seq,
                                                     simulate_tandem_repeat)
+from centroflye_tpu_torch.ops.seed_filter import build_seed_bitmap
 from centroflye_tpu_torch.stages import consensus
 from centroflye_tpu_torch.stages.distance_graph import recruit_unique_kmers
 from centroflye_tpu_torch.stages.polisher import _edit_distance, map_pos2read
@@ -182,12 +183,16 @@ FUSED_EVERY = 4           # every 4th fused step's K1c call kept for the check
 CAND_ROWS = 256           # candidate rows of a fused step (the engine's)
 K1C_PASSING = (11, 128)   # passing rows of a fused step that K1c is timed at
 K1C_CHUNKS = (2048, 4096, 8192)   # C that K1c is timed at besides its own
+FUSED_STRIDE = 2          # make_fused_recruit's sampling stride
 CLI_READS = 300
 PALLAS = "centroflye_tpu/ops/myers_pallas_v3.py"
 K1_REPLACES = f"{PALLAS}:575"
 # K1c scores the fused step's survivors, which the JAX package scores
 # whole with K1's pallas_call; it replaces none of its own
 K1C_REPLACES = f"none (the survivors of {PALLAS}:575)"
+# the fused step's seed filter and compaction: jnp in the JAX package
+SF_REPLACES = ("none (centroflye_tpu/ops/fused_recruit.py's _packed_hits "
+               "and argsort, jnp)")
 K2_REPLACES = f"{PALLAS}:188"
 K3_REPLACES = f"{PALLAS}:451"
 K4_REPLACES = "centroflye_tpu/ops/myers.py:113"   # a jnp scan, no pallas_call
@@ -721,6 +726,76 @@ def phase_k1c(dev, rate):
             "instances": out}
 
 
+def seed_filter_work(lens, seed_k, stride, nw):
+    """(live words, bitmap probes, bytes) of the seed filter on rows of
+    `lens`: the words holding a window, the windows at the sampled
+    phases, and the bytes read once (the live words, one 4-byte bitmap
+    word a probe) and written (the bundle)."""
+    lens = np.asarray(lens, np.int64)
+    live = np.clip((lens - seed_k) // 16 + 1, 0, nw)
+    probes = sum(np.clip((lens - seed_k - o) // 16 + 1, 0, nw).sum()
+                 for o in range(0, 16, stride))
+    nbytes = 4 * int(live.sum()) + 4 * int(probes) + 4 * (3 * len(lens) + 1)
+    return int(live.sum()), int(probes), nbytes
+
+
+def phase_seed_filter(dev):
+    """The fused step's seed filter and compaction (`csrc/seed_filter.cu`)
+    at the pipeline's shape, CAND_ROWS x PIPELINE_SEG_LEN (`k1c_case`'s
+    rows), with recruitment's settings, on DXZ1 and D6Z1, with rel2-like
+    row lengths and with every row full: the kernel's bundle and pass
+    order equal its plain version's on the card; each one's device ms,
+    and the bound (bytes over HBM: the live words and a bitmap word a
+    probe, read once)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    cfg = RecruitmentConfig()
+    nw = PIPELINE_SEG_LEN // 16
+    out = {}
+    for name, fasta in (("DXZ1", UNIT_FASTA), ("D6Z1", D6Z1_FASTA)):
+        unit = read_seq(fasta)
+        _, text_t = k1c_case(rng, encode(unit), dev)
+        codes = np.ascontiguousarray(text_t.t().cpu().numpy())
+        bm = int32_words(words_tensor(
+            build_seed_bitmap(unit, cfg.seed_k, le=True), dev))
+        kw = dict(m=len(unit), seed_k=cfg.seed_k, stride=FUSED_STRIDE,
+                  min_hits=max(1, cfg.min_seed_hits // FUSED_STRIDE),
+                  k_budget=K_BUDGET)
+        for lengths in ("rel2", "full"):
+            lens = np.full(CAND_ROWS, PIPELINE_SEG_LEN, np.int32)
+            if lengths == "rel2":
+                lens = np.minimum(rel2_lengths(rng, CAND_ROWS),
+                                  PIPELINE_SEG_LEN).astype(np.int32)
+            packed, _ = fused_recruit.pack_2bit(codes, lens)
+            args = (bm, torch.from_numpy(packed).to(dev),
+                    torch.from_numpy(lens).to(dev))
+            got = fused_recruit.seed_filter_compact(*args, **kw)
+            want = fused_recruit.seed_filter_compact_plain(*args, **kw)
+            err = int(not (torch.equal(got[0], want[0])
+                           and torch.equal(got[1], want[1])))
+            check(err == 0, f"the seed filter kernel != plain at "
+                  f"{CAND_ROWS}x{PIPELINE_SEG_LEN}, {name}, {lengths}")
+            ms = time_cuda(lambda: fused_recruit.seed_filter_compact(
+                *args, **kw), reps=50)
+            plain_ms = time_cuda(lambda: fused_recruit.seed_filter_compact_plain(
+                *args, **kw), reps=10)
+            live, probes, nbytes = seed_filter_work(lens, cfg.seed_k,
+                                                    FUSED_STRIDE, nw)
+            out[f"{CAND_ROWS}x{PIPELINE_SEG_LEN} {name} {lengths}"] = {
+                "m": len(unit), "n_pass": int(got[0][-1]),
+                "mean_len": float(lens.mean()), "live_words": live,
+                "probes": probes, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "seed_filter", "instances": out,
+          "seconds": time.perf_counter() - t0})
+    first = out[f"{CAND_ROWS}x{PIPELINE_SEG_LEN} DXZ1 rel2"]
+    return {"max_abs_err": max(i["max_abs_err"] for i in out.values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "instances": out}
+
+
 def phase_k2(k1, k1_ms, m, rate):
     """K2 with peq_f, then peq_r, on phase k1's batch, the wrapper's
     instance and every G: each equals the matching strand of the plain
@@ -967,19 +1042,20 @@ def phase_main_path(unit, dev):
     list(engine.run(reads[:272]))                 # warm-up
     torch.cuda.synchronize()
 
-    myers_hw_2strand.launches = 0
-    myers_hw_chunks.launches = 0
+    for key in ("k1", "k1c", "sf"):
+        KERNELS[key].launches = 0
     t_run = time.perf_counter()
     results = list(engine.run(reads))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t_run
-    launches = {"k1": myers_hw_2strand.launches,
-                "k1c": myers_hw_chunks.launches}
+    launches = {k: KERNELS[k].launches for k in ("k1", "k1c", "sf")}
     runs, fills = hold_fills(unit, cfg, reads, results, dev)
     runs[True].insert(0, dt)
 
     check(launches["k1c"] > 0, "the main path's fused step launched K1c "
           "no time")
+    check(launches["sf"] == launches["k1c"], f"the seed filter kernel "
+          f"launched {launches['sf']} times in {launches['k1c']} fused steps")
     check([r.r_id for r in results] == [r for r, _ in reads],
           "results out of input order")
     recruited = {r.r_id for r in results if r.recruited}
@@ -1015,7 +1091,7 @@ def phase_main_path(unit, dev):
           "exact_tier_reads": len(reads), "exact_tier_equal": True,
           "reads_per_s": len(reads) / dt, "mbp_per_s": total_bp / dt / 1e6,
           "run_seconds": dt, "k1_launches": launches["k1"],
-          "k1c_launches": launches["k1c"],
+          "k1c_launches": launches["k1c"], "sf_launches": launches["sf"],
           "fills_equal": True,
           "fills": {("native" if f else "numpy"): {
               "run_seconds": runs[f],
@@ -1873,6 +1949,7 @@ def phase_placement(world, dec, res, dev, outdir,
 
 
 KERNELS = {"k1": myers_hw_2strand, "k1c": myers_hw_chunks,
+           "sf": fused_recruit.seed_filter_compact,
            "k2": myers_hw_v3, "k3": myers_hw_v3_banded, "k4": myers_perrow}
 PIPELINE_STAGES = ("run_recruitment", "run_decomposition",
                    "run_unique_kmers", "run_placement",
@@ -2064,6 +2141,9 @@ def phase_cenx_pipeline(unit, world, background, dev, outdir, rate,
     del captured
     check(launches["k1c"] > 0, "the cenX pipeline's fused step launched K1c "
           "no time")
+    check(launches["sf"] == launches["k1c"], f"the seed filter kernel "
+          f"launched {launches['sf']} times in {launches['k1c']} fused steps "
+          f"of the cenX pipeline")
     check(set(seconds) == set(PIPELINE_STAGES),
           f"stages run: {sorted(seconds)}")
 
@@ -2617,8 +2697,7 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
                              device=dev)
     torch.cuda.synchronize()
     seconds["recruitment"] = time.perf_counter() - t
-    k1_launches = {"k1": myers_hw_2strand.launches,
-                   "k1c": myers_hw_chunks.launches}
+    k1_launches = {k: KERNELS[k].launches for k in ("k1", "k1c", "sf")}
     t = time.perf_counter()
     fused, k1_instance = hold_fused_k1(captured, len(read_seq(D6Z1_FASTA)),
                                        rate, CEN6_THRESHOLD, "cen6_pipeline")
@@ -2741,6 +2820,9 @@ def phase_cen6_pipeline(world, background, dev, outdir, rate,
                          for k, w in zip(digests, want)},
            "seconds": time.perf_counter() - t0}
     emit(out)
+    check(launches["sf"] == launches["k1c"], f"the seed filter kernel "
+          f"launched {launches['sf']} times in {launches['k1c']} fused steps "
+          f"of cen6's recruitment")
     check(launches["k1c"] > 0, "cen6 recruitment's fused step launched K1c "
           "no time")
     check(launches["k4"] > 0, "the cen6 decomposition launched K4 no time")
@@ -3367,6 +3449,7 @@ def main():
     m = len(unit)
     k1, k1_state = phase_k1(encode(unit), dev, rate)
     k1c = phase_k1c(dev, rate)
+    sf = phase_seed_filter(dev)
     k2 = phase_k2(k1_state, k1["ms"], m, rate)
     k3 = phase_k3(encode(unit), dev, k1["ms"], k2["ms"], rate)
     k4 = phase_k4(dev, rate)
@@ -3422,6 +3505,7 @@ def main():
                                    *k1_cen6.values())))
     by_path = {"k1": {"main_path": launches["k1"]},
                "k1c": {"main_path": launches["k1c"]},
+               "sf": {"main_path": launches["sf"]},
                "k2": {"myers_ops": ops_launches["k2"]},
                "k3": {"myers_ops": ops_launches["k3"]}, "k4": {}}
     for key, n in pipeline_launches.items():
@@ -3437,6 +3521,10 @@ def main():
          "source": f"{CSRC}/myers_hw_chunks.cu", "replaces": K1C_REPLACES,
          "launches": launches["k1c"], "launches_by_path": by_path["k1c"],
          **k1c},
+        {"name": "seed_filter_compact", "route": "cuda",
+         "source": f"{CSRC}/seed_filter.cu", "replaces": SF_REPLACES,
+         "launches": launches["sf"], "launches_by_path": by_path["sf"],
+         **sf},
         {"name": "myers_hw_v3", "route": "cuda",
          "source": f"{CSRC}/myers_hw_2strand.cu", "replaces": K2_REPLACES,
          "launches": ops_launches["k2"], "launches_by_path": by_path["k2"],

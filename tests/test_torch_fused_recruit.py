@@ -14,7 +14,7 @@ from centroflye_tpu.ops.seed_filter import build_seed_bitmap
 from centroflye_tpu.pipeline.simulate import add_read_noise, gen_random_seq
 
 from centroflye_tpu_torch.ops import fused_recruit as tfused
-from centroflye_tpu_torch.ops.myers import words_tensor
+from centroflye_tpu_torch.ops.myers import int32_words, words_tensor
 from centroflye_tpu_torch.ops.myers_cuda import myers_hw_chunks
 
 
@@ -166,3 +166,27 @@ def test_fused_masked_bundle_on_gpu_matches_cpu(cuda):
     got = gpu_fused.raw(packed, n_mask, lens).cpu()
     assert myers_hw_chunks.launches == before + 1
     assert torch.equal(got, cpu_fused.raw(packed, n_mask, lens))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+def test_packed_hits_plain_matches_jax_at_boundary_lengths(stride):
+    """The plain packed filter (the kernel's plain version) counts the
+    JAX package's hits on rows of length 0, shorter than the seed, and at
+    16w + o + seed_k - 1, + 0 and + 1 for every in-word phase o, on tandem
+    rows (where the boundary window hits) and random rows."""
+    B, L, k = 128, 1024, 13
+    unit, packed, lens = _batch(40 + stride, B, L, 64)
+    nw = L // 16
+    edge = [16 * ((3 + 5 * o) % (nw - 1)) + o + k + d
+            for o in range(16) for d in (-1, 0, 1)]
+    lens[:48] = edge                    # tandem rows
+    lens[64:112] = edge                 # random and fragment rows
+    lens[112:116] = (0, 5, k - 1, k)
+    jax_fused, _ = _pair(unit, 128, stride)
+    want = np.asarray(jax_fused.raw(packed, None, lens))[2 * B:3 * B]
+    bm = words_tensor(build_seed_bitmap(unit, 13, le=True), "cpu")
+    got = tfused.packed_hits_plain(int32_words(bm), torch.from_numpy(packed),
+                                   torch.from_numpy(lens), seed_k=k,
+                                   stride=stride)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:48] > 0).all() and (want[112:116] == 0).all()

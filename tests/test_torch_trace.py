@@ -30,7 +30,7 @@ ENGINE_SPANS = ("engine.init", "engine.read", "engine.fill",
                 "engine.prescan", "engine.route", "engine.launch",
                 "engine.wait", "engine.write")
 ENGINE_COUNTERS = ("engine.prescan_rows", "engine.candidate_rows",
-                   "engine.scored_rows")
+                   "engine.scored_rows", "fused.filter_kernel_steps")
 DECOMPOSER_SPANS = ("decomposer.cut", "decomposer.launch", "decomposer.wait",
                     "decomposer.choose", "decomposer.advance",
                     "decomposer.records")
@@ -183,6 +183,11 @@ def test_recruit_file_records_its_spans_and_counters(reads_file):
     # every tandem read passes the fused step's filter with a segment
     assert 40 <= rec.counters["engine.scored_rows"] <= \
         rec.counters["engine.candidate_rows"]
+    # every fused step of the engine takes the packed filter path, with
+    # at most a candidate batch (256 rows) a step
+    cand = rec.counters["engine.candidate_rows"]
+    assert -(-cand // 256) <= rec.counters["fused.filter_kernel_steps"] \
+        <= cand
     assert len(rec.spans["engine.read"]) == len(reads) + 1   # + the end
     assert len(rec.spans["engine.fill"]) >= len(reads)
     assert len(rec.spans["engine.write"]) == n
